@@ -1,0 +1,147 @@
+"""Double-double kernels K0 and K1: the dd device functions and the
+batched SPD inverse, each beside its plain PyTorch version.
+
+K0 is ``csrc/eft.cuh``: the dd sequences of ``ops/pallas_dd.py:_Ops``
+(two_sum, fast_two_sum, split, two_prod, add, mul, div, sqrt and the
+zero-padded halving sum).  Its plain versions are ``dd_sum_axis`` below
+and, from ops/xfloat.py, ``dd_add``/``dd_mul`` and ``xf_div``/``xf_sqrt``
+at k=2 (the ``_Ops`` div and sqrt sequences are theirs).
+
+K1 is ``csrc/spd_inverse_dd.cu`` (replaces
+``pallas_dd._spd_inverse_kernel``).  ``dd_spd_inverse`` is its wrapper: a
+CPU tensor takes the plain version ``dd_spd_inverse_torch``; a CUDA tensor
+launches the kernel (and counts the launch in
+``dd_spd_inverse.launches``) or raises.  The plain version follows the
+Pallas kernel's algorithm, halving trees included, so it differs from
+``ops/linalg.xf_spd_inverse`` (which sums with ``xf_sum``'s odd-fold tree
+and solves L^T x = W instead of forming W^T W) in the low limbs.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from clrs_tpu_torch.ops import _build
+from clrs_tpu_torch.ops.xfloat import F64, XF, dd_add, dd_mul, xf_div, xf_sqrt
+
+
+def _dd_div(ah, al, bh, bl):
+    return tuple(xf_div(XF(torch.stack([ah, al])), XF(torch.stack([bh, bl]))).limbs)
+
+# ---------------------------------------------------------------------------
+# K0 plain version of the halving sum (dd div/sqrt are xfloat's at k=2)
+# ---------------------------------------------------------------------------
+
+
+def dd_sum_axis(ph, pl, axis: int):
+    """dd sum along an axis: zero-padded halving tree (pallas_dd.py:128)."""
+    axis = axis % ph.ndim
+    m = ph.shape[axis]
+    np2 = 1
+    while np2 < m:
+        np2 *= 2
+    if np2 != m:
+        pad_shape = list(ph.shape)
+        pad_shape[axis] = np2 - m
+        z = torch.zeros(pad_shape, dtype=ph.dtype, device=ph.device)
+        ph = torch.cat([ph, z], dim=axis)
+        pl = torch.cat([pl, z], dim=axis)
+    while np2 > 1:
+        half = np2 // 2
+        ph, pl = dd_add(ph.narrow(axis, 0, half), pl.narrow(axis, 0, half),
+                        ph.narrow(axis, half, half), pl.narrow(axis, half, half))
+        np2 = half
+    return ph.squeeze(axis), pl.squeeze(axis)
+
+
+# ---------------------------------------------------------------------------
+# K1: batched dd SPD inverse
+# ---------------------------------------------------------------------------
+
+
+def dd_spd_inverse_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1: limbs (B, 2, n, n) -> (inv (B, 2, n, n),
+    ok (B,)).  Per block: Cholesky by columns, W = L^-1 by rows,
+    A^-1 = W^T W by sequential rank-1 accumulation."""
+    B, two, n, _ = limbs.shape
+    assert two == 2
+    dev = limbs.device
+    Ah, Al = limbs[:, 0], limbs[:, 1]
+    Lh = torch.zeros((B, n, n), dtype=F64, device=dev)
+    Ll = torch.zeros_like(Lh)
+    okf = torch.ones((B, n), dtype=torch.bool, device=dev)
+    rows = torch.arange(n, device=dev)
+    for j in range(n):
+        # s = A[:, j] - L @ L[j, :]
+        ph, pl = dd_mul(Lh, Ll, Lh[:, j:j + 1, :], Ll[:, j:j + 1, :])
+        acch, accl = dd_sum_axis(ph, pl, axis=-1)
+        sh, sl = dd_add(Ah[:, :, j], Al[:, :, j], -acch, -accl)  # (B, n)
+        djh, djl = sh[:, j], sl[:, j]
+        pos = djh > 0
+        okf[:, j] = pos
+        ljh, ljl = xf_sqrt(XF(torch.stack([torch.where(pos, djh, 1.0),
+                                           torch.where(pos, djl, 0.0)]))).limbs
+        ch, cl = _dd_div(sh, sl, ljh[:, None], ljl[:, None])
+        at, below = rows == j, rows > j
+        Lh[:, :, j] = torch.where(at, ljh[:, None], torch.where(below, ch, 0.0))
+        Ll[:, :, j] = torch.where(at, ljl[:, None], torch.where(below, cl, 0.0))
+    # W = L^-1 by forward substitution, one row at a time
+    Wh = torch.zeros_like(Lh)
+    Wl = torch.zeros_like(Lh)
+    for i in range(n):
+        ph, pl = dd_mul(Lh[:, i, :, None], Ll[:, i, :, None], Wh, Wl)
+        acch, accl = dd_sum_axis(ph, pl, axis=-2)  # (B, n) over t
+        ei = (rows == i).to(F64).expand(B, n)
+        nh, nl = dd_add(ei, torch.zeros_like(ei), -acch, -accl)
+        qh, ql = _dd_div(nh, nl, Lh[:, i, i, None], Ll[:, i, i, None])
+        Wh[:, i, :] = qh
+        Wl[:, i, :] = ql
+    # inv = W^T W
+    acch = torch.zeros_like(Lh)
+    accl = torch.zeros_like(Lh)
+    for t in range(n):
+        rh, rl = Wh[:, t, :], Wl[:, t, :]
+        ph, pl = dd_mul(rh[:, :, None], rl[:, :, None], rh[:, None, :], rl[:, None, :])
+        acch, accl = dd_add(acch, accl, ph, pl)
+    return torch.stack([acch, accl], dim=1), torch.all(okf, dim=1)
+
+
+def dd_spd_inverse(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 wrapper: limbs (B, 2, n, n) float64 -> (inv, ok (B,)).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    if limbs.device.type == "cpu":
+        return dd_spd_inverse_torch(limbs)
+    if limbs.device.type != "cuda":
+        raise ValueError(f"dd_spd_inverse: unsupported device {limbs.device}")
+    B, two, n, n2 = limbs.shape
+    if two != 2 or n != n2 or limbs.dtype != F64:
+        raise ValueError(f"dd_spd_inverse: need (B, 2, n, n) float64, got "
+                         f"{tuple(limbs.shape)} {limbs.dtype}")
+    if n > 1024:
+        raise ValueError(f"dd_spd_inverse: n={n} > 1024 (one thread per row)")
+    limbs = limbs.contiguous()
+    np2 = 1
+    while np2 < n:
+        np2 *= 2
+    out = torch.empty_like(limbs)
+    okf = torch.empty((B, n), dtype=F64, device=limbs.device)
+    scratch = torch.empty((B * (4 * n * n + 2 * n * np2),), dtype=F64,
+                          device=limbs.device)
+    lib = _build.library()
+    rc = lib.clrs_spd_inverse_dd(
+        limbs.data_ptr(), out.data_ptr(), okf.data_ptr(), scratch.data_ptr(),
+        B, n, np2, torch.cuda.current_stream(limbs.device).cuda_stream)
+    _build.check(rc, "clrs_spd_inverse_dd")
+    dd_spd_inverse.launches += 1
+    return out, torch.all(okf > 0.5, dim=1)
+
+
+dd_spd_inverse.launches = 0
+
+
+def xf_spd_inverse_batched(x_limbs: torch.Tensor):
+    """Adapter for the stacked-XF layout: limbs (2, B, n, n)."""
+    inv, ok = dd_spd_inverse(x_limbs.transpose(0, 1))
+    return inv.transpose(0, 1), ok

@@ -1,0 +1,68 @@
+"""The port's CUDA kernels K1-K3 on the card, each bit for bit against its
+plain PyTorch version (the comparison that chip_smoke.py also makes at the
+main path's and at wide shapes).  These tests need an NVIDIA GPU and nvcc
+and skip elsewhere; the file imports no JAX, so it runs on the card's
+machine:  python -m pytest -m gpu tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from clrs_tpu_torch.ops import cuda_dd, cuda_xf
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    return torch.device("cuda")
+
+
+def rand_dd(rng, shape):
+    hi = rng.standard_normal(shape)
+    lo = rng.uniform(-0.5, 0.5, shape) * np.spacing(np.abs(hi))
+    return torch.from_numpy(np.stack([hi, lo]))
+
+
+def spd_batch(rng, B, n, cond):
+    out = np.zeros((B, 2, n, n))
+    for b in range(B):
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        A = (Q * np.logspace(0, np.log10(cond), n)) @ Q.T
+        out[b, 0] = (A + A.T) / 2
+    return torch.from_numpy(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n", [(1, 11), (10, 1), (4, 33)])
+def test_spd_inverse_kernel_bitwise(cuda, B, n):
+    a = spd_batch(np.random.default_rng(n), B, n, 1e8).to(cuda)
+    a[-1, 0, 0, 0] = -1.0  # the last block is indefinite
+    before = cuda_dd.dd_spd_inverse.launches
+    inv_k, ok_k = cuda_dd.dd_spd_inverse(a)
+    inv_p, ok_p = cuda_dd.dd_spd_inverse_torch(a)
+    assert cuda_dd.dd_spd_inverse.launches == before + 1
+    assert torch.equal(ok_k, ok_p) and not bool(ok_k[-1])
+    good = ok_p.nonzero()[:, 0]
+    assert torch.equal(inv_k[good].view(torch.int64), inv_p[good].view(torch.int64))
+
+
+@pytest.mark.gpu
+def test_schur_pairs_kernel_bitwise(cuda):
+    rng = np.random.default_rng(1)
+    a4, b4 = (rand_dd(rng, (2, 9, 4, 11, 11)).to(cuda) for _ in range(2))
+    hh = rand_dd(rng, (2, 11, 11)).to(cuda)
+    got = cuda_xf.schur_pairs(a4, b4, hh)
+    assert torch.equal(got.view(torch.int64),
+                       cuda_xf.schur_pairs_torch(a4, b4, hh).view(torch.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,K,m", [(1, 6, 6, 11), (3, 11, 6, 11), (2, 40, 70, 33)])
+def test_matmul_kernel_bitwise(cuda, B, n, K, m):
+    rng = np.random.default_rng(n)
+    a = rand_dd(rng, (B, n, K)).to(cuda)
+    b = rand_dd(rng, (B, K, m)).to(cuda)
+    assert torch.equal(cuda_xf.dd_matmul(a, b).view(torch.int64),
+                       cuda_xf.dd_matmul_seq_torch(a, b).view(torch.int64))

@@ -1,0 +1,194 @@
+"""The port's double-double arithmetic (clrs_tpu_torch/ops/xfloat.py)
+against the JAX reference (clrs_tpu/ops/xfloat.py), both on the CPU in
+float64: the port performs the reference's operations in the reference's
+order, so the limbs must be BITWISE equal.  Inputs are made with numpy
+from a seed and handed to both."""
+
+import jax.numpy as jnp
+import mpmath
+import numpy as np
+import pytest
+import torch
+
+from clrs_tpu.ops import xfloat as jx
+from clrs_tpu_torch.ops import xfloat as tx
+
+CPU = torch.device("cpu")
+
+
+def rand_dd(rng, shape, scale=1.0, positive=False):
+    """Normalized double-double limbs (2, *shape): |lo| <= ulp(hi)/2."""
+    hi = rng.standard_normal(shape) * scale
+    if positive:
+        hi = np.abs(hi) + 0.1 * scale
+    lo = rng.uniform(-0.5, 0.5, shape) * np.spacing(np.abs(hi))
+    return np.stack([hi, lo])
+
+
+def both(limbs):
+    return jx.XF(jnp.asarray(limbs)), tx.XF(torch.from_numpy(np.array(limbs)))
+
+
+def assert_bitwise(j, t):
+    a = np.asarray(j.limbs if hasattr(j, "limbs") else j)
+    b = (t.limbs if hasattr(t, "limbs") else t).numpy()
+    assert a.shape == b.shape, (a.shape, b.shape)
+    assert a.dtype == b.dtype, (a.dtype, b.dtype)
+    if a.dtype == np.float64:
+        assert np.array_equal(a.view(np.uint64), b.view(np.uint64)), \
+            np.max(np.abs(a - b))
+    else:
+        assert np.array_equal(a, b)
+
+
+BINARY = {
+    "add": (jx.xf_add, tx.xf_add),
+    "mul": (jx.xf_mul, tx.xf_mul),
+    "div": (jx.xf_div, tx.xf_div),
+    "max": (jx.xf_max, tx.xf_max),
+    "min": (jx.xf_min, tx.xf_min),
+}
+
+
+@pytest.mark.parametrize("op", sorted(BINARY))
+@pytest.mark.parametrize("scale", [1e-8, 1.0, 1e12])
+def test_binary_bitwise(op, scale):
+    rng = np.random.default_rng(0)
+    a = rand_dd(rng, (4, 7), scale)
+    b = rand_dd(rng, (4, 7), 1.0)
+    ja, ta = both(a)
+    jb, tb = both(b)
+    fj, ft = BINARY[op]
+    assert_bitwise(fj(ja, jb), ft(ta, tb))
+    # broadcasting against a row and a scalar
+    assert_bitwise(fj(ja, jb[0]), ft(ta, tb[0]))
+    assert_bitwise(fj(ja[1, 2], jb), ft(ta[1, 2], tb))
+
+
+def test_operators_and_cancellation_bitwise():
+    rng = np.random.default_rng(1)
+    a = rand_dd(rng, (9,))
+    ja, ta = both(a)
+    # catastrophic cancellation: a - (a + tiny)
+    tiny = rand_dd(rng, (9,), 1e-20)
+    jt, tt = both(tiny)
+    assert_bitwise(ja - (ja + jt), ta - (ta + tt))
+    assert_bitwise(2.5 * ja - 1.0, 2.5 * ta - 1.0)
+    assert_bitwise(1.0 / ja, 1.0 / ta)
+    assert_bitwise(-ja, -ta)
+    assert_bitwise(ja < jt, ta < tt)
+    assert_bitwise(ja >= 0.25, ta >= 0.25)
+
+
+@pytest.mark.parametrize("scale", [1e-100, 1e-6, 1.0, 1e100])
+def test_sqrt_reciprocal_bitwise(scale):
+    rng = np.random.default_rng(2)
+    a = rand_dd(rng, (3, 5), scale, positive=True)
+    a[:, 0, 0] = 0.0  # sqrt(0) = 0
+    ja, ta = both(a)
+    assert_bitwise(jx.xf_sqrt(ja), tx.xf_sqrt(ta))
+    a[:, 0, 0] = 1.0
+    ja, ta = both(a)
+    assert_bitwise(jx.xf_reciprocal(ja), tx.xf_reciprocal(ta))
+
+
+def test_sign_abs_where_bitwise():
+    rng = np.random.default_rng(3)
+    a = rand_dd(rng, (6, 4))
+    a[0, 0, 0] = 0.0
+    a[1, 0, 0] = -1e-30  # zero hi, negative lo
+    ja, ta = both(a)
+    assert_bitwise(jx.xf_is_neg(ja), tx.xf_is_neg(ta))
+    assert_bitwise(jx.xf_abs(ja), tx.xf_abs(ta))
+    cond = rng.standard_normal((6, 4)) > 0
+    jb, tb = both(rand_dd(rng, (4,)))
+    assert_bitwise(jx.xf_where(jnp.asarray(cond), ja, jb),
+                   tx.xf_where(torch.from_numpy(cond), ta, tb))
+
+
+def test_pow2_ldexp_bitwise():
+    e = np.array([-1100, -1022, -3, 0, 7, 1023, 1500], dtype=np.int64)
+    assert_bitwise(jx.pow2(jnp.asarray(e), jnp.float64), tx.pow2(torch.from_numpy(e)))
+    rng = np.random.default_rng(4)
+    ja, ta = both(rand_dd(rng, (7,)))
+    shifts = [-900, -3, 0, 7, 900, 5, -7]  # results stay normal
+    assert_bitwise(jx.xf_ldexp(ja, jnp.asarray(shifts)),
+                   tx.xf_ldexp(ta, torch.tensor(shifts)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 11, 16])
+def test_sum_odd_fold_tree_bitwise(n):
+    rng = np.random.default_rng(5)
+    a = rand_dd(rng, (3, n, 2))
+    ja, ta = both(a)
+    for axis in (0, 1, -1):
+        assert_bitwise(jx.xf_sum(ja, axis=axis), tx.xf_sum(ta, axis=axis))
+
+
+def test_dot_norm_max_bitwise():
+    rng = np.random.default_rng(6)
+    for n in (1, 5, 13):
+        ja, ta = both(rand_dd(rng, (n,)))
+        jb, tb = both(rand_dd(rng, (n,)))
+        assert_bitwise(jx.xf_dot(ja, jb), tx.xf_dot(ta, tb))
+        assert_bitwise(jx.xf_norm_max(ja), tx.xf_norm_max(ta))
+    ja, ta = both(rand_dd(rng, (3, 5)))
+    assert_bitwise(jx.xf_norm_max(ja), tx.xf_norm_max(ta))
+
+
+@pytest.mark.parametrize("shapes", [((5, 7), (7, 3)), ((1, 1), (1, 1)),
+                                    ((2, 6, 11), (2, 11, 6)), ((3, 4, 5), (5, 2))])
+def test_matmul_product_tree_bitwise(shapes):
+    rng = np.random.default_rng(7)
+    ja, ta = both(rand_dd(rng, shapes[0]))
+    jb, tb = both(rand_dd(rng, shapes[1]))
+    assert_bitwise(jx.xf_matmul(ja, jb), tx.xf_matmul(ta, tb))
+
+
+def test_vec_sum_renorm_bitwise():
+    rng = np.random.default_rng(8)
+    terms = [rng.standard_normal(5) * 10.0 ** (-8 * i) for i in range(4)]
+    jt = [jnp.asarray(t) for t in terms]
+    tt = [torch.from_numpy(t) for t in terms]
+    for a, b in zip(jx._vec_sum(jt), tx._vec_sum(tt)):
+        assert_bitwise(a, b)
+    for a, b in zip(jx._renorm(jt, 2), tx._renorm(tt, 2)):
+        assert_bitwise(a, b)
+
+
+def test_from_to_mp_roundtrip_bitwise():
+    old = mpmath.mp.prec
+    mpmath.mp.prec = 256
+    try:
+        vals = np.array([[mpmath.mpf(1) / 3, -mpmath.pi, mpmath.mpf(0)],
+                         [mpmath.sqrt(2) * 1e-200, mpmath.e * 1e250,
+                          mpmath.mpf("1e-320")]], dtype=object)
+        j = jx.xf_from_mp(vals, k=2)
+        t = tx.xf_from_mp(vals, k=2, device=CPU)
+        assert_bitwise(j, t)
+        back_j = jx.xf_to_mp(j)
+        back_t = tx.xf_to_mp(t)
+        for a, b in zip(back_j.reshape(-1), back_t.reshape(-1)):
+            assert a == b
+        # dd carries ~106 bits of the 256-bit values
+        rel = abs(back_t[0, 0] - vals[0, 0]) / vals[0, 0]
+        assert rel < mpmath.mpf(2) ** -104
+    finally:
+        mpmath.mp.prec = old
+
+
+def test_other_limb_counts_raise():
+    a = tx.XF(torch.zeros((3, 2), dtype=torch.float64))
+    with pytest.raises(NotImplementedError):
+        tx.xf_add(a, a)
+    with pytest.raises(NotImplementedError):
+        tx.xf_sqrt(a)
+
+
+def test_constructors_name_their_device():
+    z = tx.XF.zeros((2, 3), device=CPU)
+    assert z.limbs.dtype == torch.float64 and z.device == CPU
+    e = tx.XF.eye(3, device=CPU)
+    assert torch.equal(e.limbs[0], torch.eye(3, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        tx.XF.from_float(1.0)
