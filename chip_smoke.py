@@ -3,56 +3,150 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, and the script exits non-zero):
-  1. requires a CUDA device; prints the card's name and power limit;
-  2. builds the hand-written kernels (clrs_tpu_torch/csrc, nvcc) and
-     prints the build seconds;
-  3. runs each kernel (K1 SPD inverse, K2 Schur pairs, K3 matmul) against
-     its plain PyTorch version on the card, at the Delsarte config-1
-     shapes and at wide shapes: limbs and flags must be bitwise equal;
-     prints median times of kernel and plain version;
+  1. requires a CUDA device; prints the card's name and power limit, and
+     starts the CPU reference solves of phases 4 and 5 in two worker
+     processes (they need no card);
+  2. builds the hand-written kernels (clrs_tpu_torch/csrc, one nvcc per
+     source, all at once) and prints the build seconds and ptxas's
+     registers and spills of the k-limb kernels at k=3 and k=10;
+  3. runs each kernel (K1 SPD inverse, K2 Schur pairs at k=2 and k,
+     K3 matmul, K4 k-limb matmul, K5 k-limb SPD inverse) against its plain
+     PyTorch version on the card, at every Delsarte config-1 shape of the
+     main path, K2, K4 and K5 at k = 3, 4, 6, 10, and at wide shapes:
+     limbs and flags must be bitwise equal; prints median times of kernel
+     and plain version and each call's bound (bytes over 3.35 TB/s or
+     FP64 operations over 34 TFLOP/s, the larger);
   4. solves the Delsarte kissing-number bound in dimension 8 at 2d=10 on
-     the card with every kernel launch counter reset first; all three
-     kernels must have launched, the bound must be 240 to 1e-9, and the
-     run must follow the same solve on the CPU, routed through the kernels'
-     plain versions (same status, iterations within 2, p_obj/d_obj/gap
-     within 1e-10 relative until an error reaches the 1e-20 floor);
-  5. solves the dimension-24 bound (2d=20) on the card: 196560 to 1e-3;
-  6. prints the kernels' JSON line, then the result line
+     the card at k=2 with every launch counter reset first: K1, K2 and K3
+     must have launched, the bound must be 240 to 1e-9, and the run must
+     follow the same solve on the CPU, routed through the kernels' plain
+     versions (same status, iterations within 2, p_obj/d_obj/gap within
+     1e-10 relative until an error reaches the double-double floor 1e-20);
+  5. solves the same bound at k=3 on the card, counters reset: K2, K4 and
+     K5 must have launched (K1 and K3 are k=2 kernels and must not), the
+     status must be `optimal` with the bound 240 to 1e-12, and the run must
+     follow the CPU's on the same route as in phase 4, over the whole
+     history (the k=3 noise floor, ~1e-45, lies far below the 1e-30
+     thresholds);
+  6. solves the dimension-24 bound (2d=20, k=2) on the card, counters
+     reset: K1, K2 and K3 must have launched, and the bound is 196560 to
+     1e-3;
+  7. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} as the last line.
 The full record also goes to chiprun_out/chip_smoke.json.
 """
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from multiprocessing import get_context
 
 import mpmath  # noqa: F401  (the port's front-end needs it; fail loudly here)
 import numpy as np
 import torch
 
-REPLACES = {
-    "spd_inverse_dd": "clrs_tpu/ops/pallas_dd.py:151",
-    "schur_pairs_dd": "clrs_tpu/ops/pallas_xf.py:591",
-    "matmul_dd": "clrs_tpu/ops/pallas_xf.py:359",
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "spd_inverse_dd": ("clrs_tpu_torch/csrc/spd_inverse_dd.cu",
+                       "clrs_tpu/ops/pallas_dd.py:151"),
+    "schur_pairs_dd": ("clrs_tpu_torch/csrc/schur_pairs.cu",
+                       "clrs_tpu/ops/pallas_xf.py:591"),
+    "matmul_dd": ("clrs_tpu_torch/csrc/matmul_dd.cu", "clrs_tpu/ops/pallas_xf.py:359"),
+    "schur_pairs_xf": ("clrs_tpu_torch/csrc/schur_pairs.cu",
+                       "clrs_tpu/ops/pallas_xf.py:591"),
+    "matmul_xf (K4, K6)": ("clrs_tpu_torch/csrc/matmul_xf.cu",
+                           "clrs_tpu/ops/pallas_xf.py:443"),
+    "spd_inverse_xf": ("clrs_tpu_torch/csrc/spd_inverse_xf.cu",
+                       "clrs_tpu/ops/pallas_xf.py:730"),
 }
-SOURCES = {
-    "spd_inverse_dd": "clrs_tpu_torch/csrc/spd_inverse_dd.cu",
-    "schur_pairs_dd": "clrs_tpu_torch/csrc/schur_pairs.cu",
-    "matmul_dd": "clrs_tpu_torch/csrc/matmul_dd.cu",
-}
+LADDER = (3, 4, 6, 10)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP64_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores
+SOLVE = dict(omega_p=100.0, omega_d=100.0, verbose=False)
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def median_ms(fn, reps: int) -> float:
-    """Median wall time of fn on the card, by CUDA events, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
+# ---------------------------------------------------------------------------
+# Operation counts and bounds
+# ---------------------------------------------------------------------------
+
+
+class _Count:
+    """A stand-in float that counts the operations applied to it."""
+
+    n = 0
+
+    def _op(self, other=None):
+        _Count.n += 1
+        return self
+
+    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _op
+
+    def __neg__(self):
+        return self._op()
+
+
+def op_counts(k: int) -> dict:
+    """Double operations of one k-limb add, multiply, div and sqrt as the
+    kernels compute them (add and mul counted by running the plain
+    arithmetic on counting stand-ins)."""
+    from clrs_tpu_torch.ops import xops
+
+    c = {}
+    for name, fn in (("add", xops.add), ("mul", xops.mul)):
+        _Count.n = 0
+        fn([_Count() for _ in range(k)], [_Count() for _ in range(k)])
+        c[name] = _Count.n
+    steps = max(1, int(np.ceil(np.log2(k))) + 1)
+    recip = 1 + steps * (2 * c["mul"] + 2 * c["add"] + k)
+    c["div"] = recip + 3 * c["mul"] + 2 * c["add"] + k
+    c["sqrt"] = 2 + (steps + 1) * (3 * c["mul"] + 2 * c["add"] + 2 * k)
+    return c
+
+
+def bound(nbytes: float, flops: float):
+    """The least time the card could take (ms), and what bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP64_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def matmul_work(k, B, n, K, m, steps):
+    c = op_counts(k)
+    return 8 * k * B * (n * K + K * m + n * m), B * n * m * steps * (c["mul"] + c["add"])
+
+
+def schur_work(k, G, P2, T):
+    c = op_counts(k)
+    return (8 * k * G * T * T * (8 * P2 + 1 + P2),
+            G * P2 * T * T * (5 * c["mul"] + 3 * c["add"]))
+
+
+def spd_inverse_work(k, B, n):
+    c = op_counts(k)
+    np2 = 1 << max(n - 1, 0).bit_length()
+    matvec = n * c["mul"] + (np2 - 1) * c["add"] + k + c["add"]
+    chol = n * (n * matvec + c["sqrt"] + n * c["div"])
+    solve = n * n * (matvec + c["div"])
+    wtw = n * n * n * (c["mul"] + c["add"])
+    return 8 * B * (2 * k * n * n + n), B * (chol + solve + wtw)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def median_ms(fn, reps: int, warm: bool = True) -> float:
+    """Median wall time of fn on the card, by CUDA events."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -66,26 +160,40 @@ def median_ms(fn, reps: int) -> float:
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.shape == b.shape and torch.equal(a.view(torch.int64), b.view(torch.int64))
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int64),
+                                              b.contiguous().view(torch.int64))
 
 
-def rand_dd(rng, shape, dev):
-    hi = rng.standard_normal(shape)
-    lo = rng.uniform(-0.5, 0.5, shape) * np.spacing(np.abs(hi))
-    return torch.from_numpy(np.stack([hi, lo])).to(dev)
+def rand_xf(rng, shape, k, dev):
+    """(k, *shape) normalized k-limb expansions."""
+    limbs = [rng.standard_normal(shape)]
+    for _ in range(1, k):
+        limbs.append(rng.uniform(-0.5, 0.5, shape) * np.spacing(np.abs(limbs[-1])))
+    return torch.from_numpy(np.stack(limbs)).to(dev)
 
 
-def spd_batch(rng, B, n, cond, dev):
-    """(B, 2, n, n) symmetric positive definite dd blocks of condition ~cond."""
-    out = np.zeros((B, 2, n, n))
+def spd_batch(rng, B, n, k, cond, dev):
+    """(B, k, n, n) symmetric positive definite blocks of condition ~cond."""
+    out = np.zeros((B, k, n, n))
     for b in range(B):
         Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
         A = (Q * np.logspace(0, np.log10(cond), n)) @ Q.T
-        A = (A + A.T) / 2
-        out[b, 0] = A
-        out[b, 1] = (rng.uniform(-0.5, 0.5, (n, n)) * np.spacing(np.abs(A)))
-        out[b, 1] = (out[b, 1] + out[b, 1].T) / 2
+        out[b, 0] = (A + A.T) / 2
+        for q in range(1, k):
+            lo = rng.uniform(-0.5, 0.5, (n, n)) * np.spacing(np.abs(out[b, q - 1]))
+            out[b, q] = (lo + lo.T) / 2
     return torch.from_numpy(out).to(dev)
+
+
+# config-1 products of _mm (B, n, K, m): pairings, weighted-A and trace-A
+# of the 6x6 and 5x5 blocks, and the ten 1x1 sign blocks batched as B=10
+MATMUL_SHAPES = (("(6,6)x(6,11)", (1, 6, 6, 11)), ("(11,6)x(6,11)", (1, 11, 6, 11)),
+                 ("(6,11)x(11,6)", (1, 6, 11, 6)), ("(5,5)x(5,11)", (1, 5, 5, 11)),
+                 ("(11,5)x(5,11)", (1, 11, 5, 11)), ("(5,11)x(11,5)", (1, 5, 11, 5)),
+                 ("signs 10x(1,1)x(1,1)", (10, 1, 1, 1)))
+SCHUR_SHAPES = (("config1 G=1 P2=1 T=11", (1, 1, 11)), ("signs G=10 P2=1 T=1", (10, 1, 1)))
+INVERSE_SHAPES = (("S_j 1x11x11", (1, 11, 1e8)), ("Q 1x10x10", (1, 10, 1e6)),
+                  ("signs 10x1x1", (10, 1, 1.0)))
 
 
 def check_kernels(dev, record):
@@ -95,87 +203,113 @@ def check_kernels(dev, record):
     rng = np.random.default_rng(0)
     rows = []
 
-    def case(name, label, kernel, plain, args, reps, plain_reps, main):
+    def case(name, k, label, kernel, plain, args, work, reps, plain_reps, main):
         out_k = kernel(*args)
         out_p = plain(*args)
         torch.cuda.synchronize()
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        for x, y in zip(outs_k, outs_p):
-            if x.dtype == torch.bool:
-                assert torch.equal(x, y), f"{name} {label}: flags differ"
         ok = outs_p[1] if len(outs_p) > 1 else None
         vk, vp = outs_k[0], outs_p[0]
         if ok is not None:  # compare the blocks whose factorization succeeded
+            assert torch.equal(outs_k[1], ok), f"{name} k={k} {label}: flags differ"
             vk, vp = vk[ok], vp[ok]
         err = float(torch.max(torch.abs(vk - vp))) if vk.numel() else 0.0
-        assert bits_equal(vk, vp), f"{name} {label}: not bitwise equal (max err {err})"
+        assert bits_equal(vk, vp), f"{name} k={k} {label}: not bitwise equal ({err})"
         ms = median_ms(lambda: kernel(*args), reps)
-        plain_ms = median_ms(lambda: plain(*args), plain_reps)
-        row = dict(name=name, shape=label, ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                   main_path=main)
+        plain_ms = median_ms(lambda: plain(*args), plain_reps, warm=False)
+        bound_ms, bound_by = bound(*work)
+        row = dict(name=name, k=k, shape=label, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, main_path=main)
         if ok is not None:
             row["flags"] = [bool(v) for v in ok.tolist()][:8]
         rows.append(row)
-        log(f"kernel {name:15s} {label:32s} bitwise-equal  kernel {ms:10.4f} ms"
-            f"  plain {plain_ms:10.3f} ms")
+        log(f"kernel {name:15s} k={k:<2d} {label:30s} bitwise-equal  kernel {ms:9.4f} ms"
+            f"  plain {plain_ms:10.3f} ms  bound {bound_ms:.6f} ms ({bound_by})")
+        return row
 
-    # K1 at config-1 shapes: S_j (11x11), Q (10x10), ten 1x1 sign blocks
-    for label, B, n, cond in (("S_j 1x11x11", 1, 11, 1e8), ("Q 1x10x10", 1, 10, 1e6),
-                              ("signs 10x1x1", 10, 1, 1.0)):
-        a = spd_batch(rng, B, n, cond, dev)
-        case("spd_inverse_dd", label, cuda_dd.dd_spd_inverse,
-             cuda_dd.dd_spd_inverse_torch, (a,), 50, 5, True)
-    # K1 wide: 256 blocks of 64x64 at cond ~1e10, one of them indefinite
-    a = spd_batch(rng, 256, 64, 1e10, dev)
+    # K1 at config-1 shapes, then wide: 256 blocks of 64x64 at cond ~1e10,
+    # one of them indefinite
+    for label, (B, n, cond) in INVERSE_SHAPES:
+        a = spd_batch(rng, B, n, 2, cond, dev)
+        case("spd_inverse_dd", 2, label, cuda_dd.dd_spd_inverse,
+             cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, B, n), 50, 3, True)
+    a = spd_batch(rng, 256, 64, 2, 1e10, dev)
     a[7, 0, 5, 5] = -1e3
-    case("spd_inverse_dd", "wide 256x64x64 (1 indefinite)", cuda_dd.dd_spd_inverse,
-         cuda_dd.dd_spd_inverse_torch, (a,), 5, 1, False)
-    assert rows[-1]["flags"][7] is False, "K1: the indefinite block was not flagged"
+    row = case("spd_inverse_dd", 2, "wide 256x64x64 (1 indefinite)", cuda_dd.dd_spd_inverse,
+               cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, 256, 64), 5, 1, False)
+    assert row["flags"][7] is False, "K1: the indefinite block was not flagged"
 
-    # K2: the main cluster has m=1 (one pair) and T = K*rmax = 11; the ten
-    # sign clusters go as one group of G=10 with T=1; wide: P^2=36, T=128
-    for label, G, P2, T, main in (("config1 G=1 P2=1 T=11", 1, 1, 11, True),
-                                  ("signs G=10 P2=1 T=1", 10, 1, 1, True),
-                                  ("wide P2=36 T=128", 1, 36, 128, False)):
-        a4 = rand_dd(rng, (G, P2, 4, T, T), dev)
-        b4 = rand_dd(rng, (G, P2, 4, T, T), dev)
-        hh = rand_dd(rng, (G, T, T), dev)
-        case("schur_pairs_dd", label, cuda_xf.schur_pairs, cuda_xf.schur_pairs_torch,
-             (a4, b4, hh), 50 if main else 10, 5 if main else 2, main)
+    # K2 at k=2: the main cluster has m=1 (one pair) and T = K*rmax = 11;
+    # the ten sign clusters go as one group of G=10 with T=1; wide P^2=36
+    for label, (G, P2, T) in SCHUR_SHAPES + (("wide P2=36 T=128", (1, 36, 128)),):
+        main = not label.startswith("wide")
+        a4, b4 = (rand_xf(rng, (G, P2, 4, T, T), 2, dev) for _ in range(2))
+        hh = rand_xf(rng, (G, T, T), 2, dev)
+        case("schur_pairs_dd", 2, label, cuda_xf.schur_pairs, cuda_xf.schur_pairs_torch,
+             (a4, b4, hh), schur_work(2, G, P2, T), 50 if main else 10, 3 if main else 2,
+             main)
 
-    # K3: every product of the config-1 solve (pairings, weighted-A and
-    # trace-A of the 6x6 and 5x5 blocks; the sign group batched as B=10)
-    # and a wide batch
-    for label, (B, n, K, m), main in (("(6,6)x(6,11)", (1, 6, 6, 11), True),
-                                      ("(11,6)x(6,11)", (1, 11, 6, 11), True),
-                                      ("(6,11)x(11,6)", (1, 6, 11, 6), True),
-                                      ("(5,5)x(5,11)", (1, 5, 5, 11), True),
-                                      ("(11,5)x(5,11)", (1, 11, 5, 11), True),
-                                      ("(5,11)x(11,5)", (1, 5, 11, 5), True),
-                                      ("signs 10x(1,1)x(1,1)", (10, 1, 1, 1), True),
-                                      ("wide 8x256x256x256", (8, 256, 256, 256), False)):
-        a = rand_dd(rng, (B, n, K), dev)
-        b = rand_dd(rng, (B, K, m), dev)
-        case("matmul_dd", label, cuda_xf.dd_matmul, cuda_xf.dd_matmul_seq_torch,
-             (a, b), 50 if main else 5, 5 if main else 1, main)
+    # K3: every product of the config-1 solve, and a wide batch
+    for label, (B, n, K, m) in MATMUL_SHAPES + (("wide 8x256x256x256", (8, 256, 256, 256)),):
+        main = not label.startswith("wide")
+        a, b = rand_xf(rng, (B, n, K), 2, dev), rand_xf(rng, (B, K, m), 2, dev)
+        case("matmul_dd", 2, label, cuda_xf.dd_matmul, cuda_xf.dd_matmul_seq_torch,
+             (a, b), matmul_work(2, B, n, K, m, K), 50 if main else 5, 3 if main else 1, main)
+
+    # K2, K4 and K5 at the ladder's k, at every config-1 shape
+    for k in LADDER:
+        plain_reps = 3 if k < 6 else 1
+        for label, (G, P2, T) in SCHUR_SHAPES:
+            a4, b4 = (rand_xf(rng, (G, P2, 4, T, T), k, dev) for _ in range(2))
+            hh = rand_xf(rng, (G, T, T), k, dev)
+            case("schur_pairs_xf", k, label, cuda_xf.schur_pairs, cuda_xf.schur_pairs_torch,
+                 (a4, b4, hh), schur_work(k, G, P2, T), 50, plain_reps, True)
+        for label, (B, n, K, m) in MATMUL_SHAPES:
+            a, b = rand_xf(rng, (B, n, K), k, dev), rand_xf(rng, (B, K, m), k, dev)
+            case("matmul_xf (K4, K6)", k, label, cuda_xf.matmul_xf, cuda_xf.matmul_xf_torch,
+                 (a, b), matmul_work(k, B, n, K, m, cuda_xf.padded_contraction(K)), 50,
+                 plain_reps, True)
+        for label, (B, n, cond) in INVERSE_SHAPES:
+            a = spd_batch(rng, B, n, k, cond, dev)
+            case("spd_inverse_xf", k, label, cuda_xf.spd_inverse_xf,
+                 cuda_xf.spd_inverse_xf_torch, (a,), spd_inverse_work(k, B, n), 20, 1, True)
+
+    # wide: K4 above K6's size gate (k*n*m > 2e6 tiles on the TPU), and K5
+    # on 64 blocks of 32x32 with one indefinite
+    a, b = rand_xf(rng, (1, 1024, 64), 3, dev), rand_xf(rng, (1, 64, 1024), 3, dev)
+    case("matmul_xf (K4, K6)", 3, "wide (1024,64)x(64,1024)", cuda_xf.matmul_xf,
+         cuda_xf.matmul_xf_torch, (a, b), matmul_work(3, 1, 1024, 64, 1024, 64), 5, 1,
+         False)
+    a = spd_batch(rng, 64, 32, 3, 1e10, dev)
+    a[5, 0, 3, 3] = -1e3
+    row = case("spd_inverse_xf", 3, "wide 64x32x32 (1 indefinite)", cuda_xf.spd_inverse_xf,
+               cuda_xf.spd_inverse_xf_torch, (a,), spd_inverse_work(3, 64, 32), 5, 1, False)
+    assert row["flags"][5] is False, "K5: the indefinite block was not flagged"
     record["kernel_checks"] = rows
     return rows
 
 
-def reset_counters():
+# ---------------------------------------------------------------------------
+# Phases 4-6: the solves
+# ---------------------------------------------------------------------------
+
+
+def counters():
     from clrs_tpu_torch.ops import cuda_dd, cuda_xf
 
-    for fn in (cuda_dd.dd_spd_inverse, cuda_xf.schur_pairs, cuda_xf.dd_matmul):
+    return {"spd_inverse_dd": cuda_dd.dd_spd_inverse, "schur_pairs": cuda_xf.schur_pairs,
+            "matmul_dd": cuda_xf.dd_matmul, "matmul_xf": cuda_xf.matmul_xf,
+            "spd_inverse_xf": cuda_xf.spd_inverse_xf}
+
+
+def reset_counters():
+    for fn in counters().values():
         fn.launches = 0
 
 
 def read_counters():
-    from clrs_tpu_torch.ops import cuda_dd, cuda_xf
-
-    return {"spd_inverse_dd": cuda_dd.dd_spd_inverse.launches,
-            "schur_pairs_dd": cuda_xf.schur_pairs.launches,
-            "matmul_dd": cuda_xf.dd_matmul.launches}
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def per_phase_ms(res):
@@ -183,89 +317,140 @@ def per_phase_ms(res):
     return {k: 1e3 * v / n for k, v in sorted(res.timings.items())}
 
 
-def solve_config1(dev, record):
-    """Phase 4: Delsarte dim 8, 2d=10 on the card, held against the CPU."""
+def cpu_solve(n, d, k):
+    """The CPU port on the card's route (the kernels' plain versions); run
+    in a worker process while the card works."""
+    torch.set_num_threads(2)
     from clrs_tpu_torch import delsarte_lp_bound
 
-    kw = dict(omega_p=100.0, omega_d=100.0, verbose=False)
+    t0 = time.time()
+    bound_, res = delsarte_lp_bound(n, d, precision_k=k, device="cpu",
+                                    use_cuda_matmul=True, **SOLVE)
+    return dict(bound=bound_, status=res.status, iterations=res.iterations,
+                history=res.history, wall_s=time.time() - t0)
+
+
+def solve_config1(dev, record, k, cpu_future, floor, bound_tol, expect_status, kernels):
+    """Delsarte dim 8, 2d=10 at k limbs on the card, held against the CPU."""
+    from clrs_tpu_torch import delsarte_lp_bound
+
     reset_counters()
     t0 = time.time()
-    bound, res = delsarte_lp_bound(8, 5, device=dev, **kw)
+    bound_, res = delsarte_lp_bound(8, 5, precision_k=k, device=dev, **SOLVE)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counters()
-    log(f"config1 gpu: bound {bound!r} status {res.status} iterations "
-        f"{res.iterations} wall {wall:.3f} s ({res.iterations / wall:.4f} it/s, "
-        f"set-up included)")
+    tag = f"config1 k={k}"
+    log(f"{tag} gpu: bound {bound_!r} status {res.status} iterations {res.iterations} "
+        f"wall {wall:.3f} s ({res.iterations / wall:.4f} it/s, set-up included)")
     it_s = (res.iterations - 2) / max(sum(res.timings.values()), 1e-12)
     phases = per_phase_ms(res)
-    log(f"config1 gpu: steady {it_s:.4f} it/s; ms/iter by phase: "
-        + ", ".join(f"{k}={v:.2f}" for k, v in phases.items()))
-    log(f"config1 gpu: kernel launches during the solve: {launches}")
+    log(f"{tag} gpu: steady {it_s:.4f} it/s; ms/iter by phase: "
+        + ", ".join(f"{p}={v:.2f}" for p, v in phases.items()))
+    log(f"{tag} gpu: kernel launches during the solve: {launches}")
 
-    # the same call on the CPU, routed like the card's run (the kernels'
-    # plain versions, bit for bit the kernels).  The step length's float64
-    # eigenvalues come from each device's own eigensolver and differ in the
-    # last bits; once an error reaches the double-double floor (~1e-30) the
-    # feasibility tests turn on such bits and the two paths part (a one-ulp
-    # change of the eigenvalues on the CPU alone parts them by ~0.08 in gap).
-    # So the histories must agree to 1e-10 only before the floor: up to the
-    # first iteration where either run has p_err or d_err below 1e-20.
-    t0 = time.time()
-    bound_cpu, res_cpu = delsarte_lp_bound(8, 5, device="cpu", use_cuda_matmul=True,
-                                           **kw)
-    wall_cpu = time.time() - t0
-    log(f"config1 cpu: bound {bound_cpu!r} status {res_cpu.status} iterations "
-        f"{res_cpu.iterations} wall {wall_cpu:.3f} s")
-    rel_by_iter = []
-    for rg, rc in zip(res.history[:20], res_cpu.history[:20]):
-        rel_by_iter.append(max(abs(rg[key] - rc[key]) / max(abs(rc[key]), 1e-300)
-                               for key in ("p_obj", "d_obj", "gap")))
-    floor_at = next((i for i, (rg, rc) in enumerate(zip(res.history, res_cpu.history))
-                     if min(rg["p_err"], rg["d_err"], rc["p_err"], rc["d_err"]) < 1e-20),
-                    len(res.history))
+    # The CPU run takes the same route (the kernels' plain versions, bit
+    # for bit the kernels).  The step length's float64 eigenvalues come
+    # from each device's own eigensolver and differ in the last bits; once
+    # an error reaches the k-limb noise floor the feasibility tests turn on
+    # such bits and the two paths may part (at k=2 a one-ulp change of the
+    # eigenvalues on the CPU alone parts them by ~0.08 in gap).  So the
+    # histories must agree to 1e-10 only until either run has p_err or
+    # d_err below the floor; floor None holds the whole history.
+    cpu = cpu_future.get()
+    log(f"{tag} cpu: bound {cpu['bound']!r} status {cpu['status']} iterations "
+        f"{cpu['iterations']} wall {cpu['wall_s']:.3f} s")
+    rel_by_iter = [max(abs(rg[key] - rc[key]) / max(abs(rc[key]), 1e-300)
+                       for key in ("p_obj", "d_obj", "gap"))
+                   for rg, rc in zip(res.history, cpu["history"])]
+    floor_at = next((i for i, (rg, rc) in enumerate(zip(res.history, cpu["history"]))
+                     if floor is not None
+                     and min(rg["p_err"], rg["d_err"], rc["p_err"], rc["d_err"]) < floor),
+                    len(rel_by_iter))
     pre_floor = max(rel_by_iter[:floor_at], default=0.0)
     parted = next((i for i, r in enumerate(rel_by_iter) if r > 1e-10), None)
-    log(f"config1: relative history difference gpu vs cpu: {max(rel_by_iter)!r} over "
-        f"20 iterations, first above 1e-10 at iteration {parted}; {pre_floor!r} over "
-        f"the {floor_at} iterations before the 1e-20 error floor")
-    record["config1"] = dict(
-        bound=bound, status=res.status, iterations=res.iterations, wall_s=wall,
+    log(f"{tag}: relative history difference gpu vs cpu: {max(rel_by_iter)!r} over "
+        f"{len(rel_by_iter)} iterations, first above 1e-10 at iteration {parted}; "
+        f"{pre_floor!r} over the {floor_at} iterations held "
+        f"({'the whole history' if floor is None else f'before the {floor:g} error floor'})")
+    record[f"config1_k{k}"] = dict(
+        bound=bound_, status=res.status, iterations=res.iterations, wall_s=wall,
         steady_it_per_s=it_s, phase_ms_per_iter=phases, launches=launches,
-        bound_cpu=bound_cpu, status_cpu=res_cpu.status,
-        iterations_cpu=res_cpu.iterations, wall_cpu_s=wall_cpu,
-        history_rel_diff_by_iter=rel_by_iter, history_parted_at=parted,
-        floor_at=floor_at, history_pre_floor_max_rel_diff=pre_floor,
-        history=res.history)
+        bound_cpu=cpu["bound"], status_cpu=cpu["status"], iterations_cpu=cpu["iterations"],
+        wall_cpu_s=cpu["wall_s"], history_rel_diff_by_iter=rel_by_iter,
+        history_parted_at=parted, floor_at=floor_at,
+        history_pre_floor_max_rel_diff=pre_floor, history=res.history)
 
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} never launched during the config-1 solve"
-    assert abs(bound - 240.0) < 1e-9, f"config1 bound {bound!r}"
-    assert res.status == res_cpu.status, (res.status, res_cpu.status)
-    assert abs(res.iterations - res_cpu.iterations) <= 2, \
-        (res.iterations, res_cpu.iterations)
-    assert len(res.history) >= 20 and len(res_cpu.history) >= 20
+    for name in kernels:
+        assert launches[name] > 0, f"{name} never launched during the {tag} solve"
+    for name in set(launches) - set(kernels):
+        assert launches[name] == 0, f"{name} launched during the {tag} solve"
+    assert abs(bound_ - 240.0) < bound_tol, f"{tag} bound {bound_!r}"
+    if expect_status is not None:
+        assert res.status == expect_status, f"{tag} status {res.status}"
+    assert res.status == cpu["status"], (res.status, cpu["status"])
+    assert abs(res.iterations - cpu["iterations"]) <= 2, (res.iterations, cpu["iterations"])
     assert floor_at >= 1, "no iteration before the error floor to compare"
     assert pre_floor <= 1e-10, f"gpu and cpu histories differ by {pre_floor!r}"
     return launches
 
 
 def solve_dim24(dev, record):
-    """Phase 5: the dimension-24 kissing bound (Leech lattice) on the card."""
+    """Phase 6: the dimension-24 kissing bound (Leech lattice) on the card."""
     from clrs_tpu_torch import delsarte_lp_bound
 
+    reset_counters()
     t0 = time.time()
-    bound, res = delsarte_lp_bound(24, 10, omega_p=100.0, omega_d=100.0,
-                                   verbose=False, device=dev)
+    bound_, res = delsarte_lp_bound(24, 10, device=dev, **SOLVE)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    launches = read_counters()
     it_s = (res.iterations - 2) / max(sum(res.timings.values()), 1e-12)
-    log(f"dim24 gpu: bound {bound!r} status {res.status} iterations "
+    log(f"dim24 gpu: bound {bound_!r} status {res.status} iterations "
         f"{res.iterations} wall {wall:.3f} s steady {it_s:.4f} it/s")
-    record["dim24"] = dict(bound=bound, status=res.status, iterations=res.iterations,
+    log(f"dim24 gpu: kernel launches during the solve: {launches}")
+    record["dim24"] = dict(bound=bound_, status=res.status, iterations=res.iterations,
                            wall_s=wall, steady_it_per_s=it_s,
-                           phase_ms_per_iter=per_phase_ms(res))
-    assert abs(bound - 196560.0) < 1e-3, f"dim24 bound {bound!r}"
+                           phase_ms_per_iter=per_phase_ms(res), launches=launches)
+    for name in ("spd_inverse_dd", "schur_pairs", "matmul_dd"):
+        assert launches[name] > 0, f"{name} never launched during the dim24 solve"
+    assert abs(bound_ - 196560.0) < 1e-3, f"dim24 bound {bound_!r}"
+    return launches
+
+
+def ptxas_report(text: str):
+    """Registers, stack and spills of the k-limb kernels (and of K5's
+    out-of-line add and multiply) at k=3 and 10."""
+    names = ("matmul_xf_kernel", "schur_pairs_kernel", "spd_inverse_xf_kernel",
+             "xf_add_n", "xf_mul_n")
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            cur = next((f"{n} k={kk}" for n in names for kk in (3, 10)
+                        if f"{n}ILi{kk}E" in m.group(1)), None)
+        elif cur and ("spill" in line or "Used" in line):
+            out.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def kernel_summary(rows, launches):
+    """One entry per kernel: launches in its main path's solve (k=2 for
+    the dd kernels, k=3 for the k-limb ones), times and bound at that
+    path's first shape.  No PyTorch call computes a k-limb product or
+    inverse, so there is no library time."""
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        k = 2 if name.endswith("_dd") else 3
+        first = next(r for r in rows if r["name"] == name and r["main_path"] and r["k"] == k)
+        counter = "schur_pairs" if name.startswith("schur_pairs") else name.split(" ")[0]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[k][counter],
+            max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
+            ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=None))
+    return kernels
 
 
 def main():
@@ -281,25 +466,33 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} device {record['device']}")
 
-    from clrs_tpu_torch.ops import _build
+    # the pool's exit terminates both workers, on success and on failure
+    with get_context("spawn").Pool(2) as pool:
+        cpu_k2 = pool.apply_async(cpu_solve, (8, 5, 2))
+        cpu_k3 = pool.apply_async(cpu_solve, (8, 5, 3))
 
-    t0 = time.time()
-    _build.library()
-    record["build_s"] = time.time() - t0
-    log(f"build: {record['build_s']:.2f} s ({_build.library_path().name})")
+        from clrs_tpu_torch.ops import _build
 
-    rows = check_kernels(dev, record)
-    launches = solve_config1(dev, record)
-    solve_dim24(dev, record)
+        t0 = time.time()
+        _build.library()
+        record["build_s"] = time.time() - t0
+        build_log = _build.log_path().read_text()
+        log(f"build: {record['build_s']:.2f} s ({_build.library_path().name})")
+        for line in build_log.splitlines():
+            if line.startswith("=="):
+                log("build: " + line[3:])
+        record["ptxas"] = ptxas_report(build_log)
+        for line in record["ptxas"]:
+            log("ptxas: " + line)
 
-    kernels = []
-    for name in ("spd_inverse_dd", "schur_pairs_dd", "matmul_dd"):
-        main_rows = [r for r in rows if r["name"] == name and r["main_path"]]
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
-            ms=main_rows[0]["ms"], plain_ms=main_rows[0]["plain_ms"]))
+        rows = check_kernels(dev, record)
+        launches = {2: solve_config1(dev, record, 2, cpu_k2, 1e-20, 1e-9, None,
+                                     ("spd_inverse_dd", "schur_pairs", "matmul_dd")),
+                    3: solve_config1(dev, record, 3, cpu_k3, None, 1e-12, "optimal",
+                                     ("schur_pairs", "matmul_xf", "spd_inverse_xf"))}
+    launches["dim24"] = solve_dim24(dev, record)
+
+    kernels = kernel_summary(rows, launches)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(record, kernels=kernels), f, indent=1)

@@ -2,19 +2,20 @@
 
 A port of the JAX package ``clrs_tpu`` (the reference, which stays in the
 repository beside it): a primal-dual XZ predictor-corrector interior-point
-method for clustered low-rank SDPs in double-double arithmetic, with
-float64 limbs on every device.  Its hot kernels are written by hand for
+method for clustered low-rank SDPs in k-limb float-expansion arithmetic
+(k = 2..12: double-double and up), with float64 limbs on every device.  Its hot kernels are written by hand for
 NVIDIA Hopper (``csrc/``, built with nvcc at first use on the card); each
 has a plain PyTorch version that runs on the CPU.
 
 Layers (bottom-up):
-  ops/     double-double arithmetic, linear algebra, the CUDA kernels
+  ops/     k-limb arithmetic, linear algebra, the CUDA kernels
   core/    block metadata, batching, problem packing, the IPM solver
   models/  problem front-end: polynomial bases, sample points, prepareabc
   apps/    applications (the Delsarte LP bound)
 
-Importing the package loads neither jax nor clrs_tpu and sets no
-environment variable.
+The entry points (``solverank1sdp``, ``delsarte_lp_bound``) solve on the
+CUDA card unless given ``device="cpu"``.  Importing the package loads
+neither jax nor clrs_tpu and sets no environment variable.
 """
 
 from clrs_tpu_torch.apps.delsarte import delsarte_lp_bound

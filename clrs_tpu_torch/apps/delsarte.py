@@ -79,12 +79,14 @@ def delsarte_lp_bound(
     costheta="0.5",
     prec: int = 256,
     return_problem: bool = False,
-    device="cpu",
+    device="cuda",
     **solver_kwargs,
 ):
     """LP upper bound for spherical codes with min angle arccos(costheta)
     in S^{n-1}, using Gegenbauer polynomials up to degree 2d, solved on
-    ``device``.  Returns (bound, SolveResult) — bound = 1 + sum y_k."""
+    ``device`` (the CUDA card unless told otherwise; without one it
+    raises) in ``precision_k`` limbs (a solver keyword, default 2).
+    Returns (bound, SolveResult) — bound = 1 + sum y_k."""
     cons, b, info = build_delsarte_constraints(n, d, costheta, prec)
     res = solverank1sdp(cons, b, info, device=device, **solver_kwargs)
     bound = 1.0 - res.dual_objective

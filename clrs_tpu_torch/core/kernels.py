@@ -14,8 +14,9 @@ Index conventions (per cluster j, inner block l):
   tuple index within the cluster: idx = pair_index(r, s)*K + k
 
 ``use_cuda`` routes the products through the hand-written kernels:
-every k=2 matmul of ``_mm`` through K3 and the Schur core through K2.
-On a CPU tensor the kernels' plain versions run instead.
+every matmul of ``_mm`` through K3 (k=2) or K4 (k >= 3), and the Schur
+core through K2 at the problem's k.  On a CPU tensor the kernels' plain
+versions run instead.
 """
 
 from __future__ import annotations
@@ -26,15 +27,15 @@ import numpy as np
 import torch
 
 from clrs_tpu_torch.core.blockinfo import pair_list
-from clrs_tpu_torch.ops.cuda_xf import schur_pairs, xf_matmul_dd
+from clrs_tpu_torch.ops.cuda_xf import schur_pairs, xf_matmul_k
 from clrs_tpu_torch.ops.xfloat import XF, xf_add, xf_matmul, xf_mul, xf_sum
 
 
 def _mm(a: XF, b: XF, use_cuda: bool) -> XF:
-    """Matmul dispatch: K3 (sequential dd accumulation) under use_cuda,
+    """Matmul dispatch: K3 or K4 (sequential accumulation) under use_cuda,
     else the expansion matmul's product tree."""
     if use_cuda:
-        return xf_matmul_dd(a, b)
+        return xf_matmul_k(a, b)
     return xf_matmul(a, b)
 
 
@@ -89,15 +90,16 @@ def _schur_block_contribution_cuda(PX: XF, PY: XF, HH: XF, m: int, K: int,
     ia = torch.from_numpy(ar * m + ac).to(dev)
     ib = torch.from_numpy(br * m + bc).to(dev)
     nl = PX.limbs.ndim
-    # (2, *bs, m, T, m, T) -> (2, G, m*m, T, T) with [r*m + s, t1, t2]
+    k = PX.k
+    # (k, *bs, m, T, m, T) -> (k, G, m*m, T, T) with [r*m + s, t1, t2]
     def mm_first(x):
         x = x.permute(tuple(range(nl - 4)) + (nl - 4, nl - 2, nl - 3, nl - 1))
-        return x.reshape(2, -1, m * m, T, T)
+        return x.reshape(k, -1, m * m, T, T)
 
-    A4 = mm_first(PX.limbs)[:, :, ia]  # (2, G, P2, 4, T, T): PX[ar, t1, ac, t2]
+    A4 = mm_first(PX.limbs)[:, :, ia]  # (k, G, P2, 4, T, T): PX[ar, t1, ac, t2]
     B4 = mm_first(PY.limbs)[:, :, ib].transpose(-1, -2)  # PY[br, t2, bc, t1]
-    HHg = HH.limbs.reshape(2, -1, T, T)
-    W = XF(schur_pairs(A4, B4, HHg).reshape((2,) + bs + (P, P, K, rmax, K, rmax)))
+    HHg = HH.limbs.reshape(k, -1, T, T)
+    W = XF(schur_pairs(A4, B4, HHg).reshape((k,) + bs + (P, P, K, rmax, K, rmax)))
     blk = xf_sum(xf_sum(W, axis=-1), axis=-2)  # (..., P, P, K, K)
     nb = len(bs)
     return blk.transpose(_perm(nb, 0, 2, 1, 3)).reshape(bs + (P * K, P * K))

@@ -7,8 +7,10 @@ Counterpart of ``clrs_tpu/core/problem.py``.  Per cluster j the ragged
   H: (T,)        weights, 0.0 in padding slots (exact no-op everywhere)
 plus XF B (dim_S, n_y) and c (dim_S, 1).  ``prepare_pack_data`` is the
 reference's exact (mpmath object-level) packing and preconditioning,
-copied unchanged; ``_pack_from_data`` rounds it to double-double limbs on
-an explicit device.
+copied unchanged; ``_pack_from_data`` rounds it to k float64 limbs on
+an explicit device.  As in the reference, the packing rounds at the
+ambient mpmath precision: ``xf_from_mp``'s remainders are computed at
+``mpmath.mp.prec``, so at 53 bits the limbs past the first come out zero.
 """
 
 from __future__ import annotations

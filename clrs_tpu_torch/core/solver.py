@@ -19,11 +19,12 @@ Algorithm (MPMP.jl:642-657):
   8. x += a_p dx, X += a_p dX, y += a_d dy, Y += a_d dY
   until duality gap < 1e-15 and feasibility errors < 1e-30.
 
+The arithmetic runs in k-limb expansions, k = ``precision_k`` (2..12).
 On a CUDA problem (``use_cuda_matmul`` on by default there) the products
-of the pairings, weighted-A and trace-A go through the K3 kernel, the
-Schur core through K2, and S_j^-1 and Q^-1 through K1; ``use_cuda_inverse``
-also sends X^-1 through K1.  On the CPU the same routing runs the
-kernels' plain versions.
+of the pairings, weighted-A and trace-A go through K3 (k=2) or K4
+(k >= 3), the Schur core through K2, and S_j^-1 and Q^-1 through K1 (k=2)
+or K5 (k >= 3); ``use_cuda_inverse`` also sends X^-1 there.  On the CPU
+the same routing runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from clrs_tpu_torch.core.problem import (
     bd_map,
     bd_scalar_identity,
 )
-from clrs_tpu_torch.ops.cuda_dd import xf_spd_inverse_batched
+from clrs_tpu_torch.ops.cuda_xf import xf_spd_inverse_batched
 from clrs_tpu_torch.ops.linalg import (
     xf_inverse_lu,
     xf_min_eig_sym,
@@ -108,10 +109,10 @@ class SolverConfig:
     # numerical degradation ladder (sticky, MPMP.jl:717-718)
     use_lu_inverse: bool = False  # X^-1 via LU instead of Cholesky
     use_lu_schur: bool = False  # S_j and Q via LU instead of Cholesky
-    use_cuda_inverse: bool = False  # X^-1 through the K1 SPD-inverse kernel
-    # pairing / weighted-A / trace-A products through K3, the Schur core
-    # through K2, S_j^-1 and Q^-1 through K1.  None = on when the problem
-    # lies on a CUDA device.
+    use_cuda_inverse: bool = False  # X^-1 through the K1/K5 SPD-inverse kernel
+    # pairing / weighted-A / trace-A products through K3/K4, the Schur core
+    # through K2, S_j^-1 and Q^-1 through K1/K5.  None = on when the
+    # problem lies on a CUDA device.
     use_cuda_matmul: Optional[bool] = None
 
     def use_cuda_kernels(self, device) -> bool:
@@ -152,9 +153,9 @@ def compute_residual_R(X, Y, mu: XF, info: BlockInfo, dX=None, dY=None):
 
 
 def _cuda_spd_inverse(a: XF):
-    """S^-1 (any leading batch) through K1, symmetrized."""
+    """S^-1 (any leading batch) through K1 or K5, symmetrized."""
     n = a.shape[-1]
-    inv, ok = xf_spd_inverse_batched(a.limbs.reshape(2, -1, n, n))
+    inv, ok = xf_spd_inverse_batched(a.limbs.reshape(a.k, -1, n, n))
     return xf_sym(XF(inv.reshape(a.limbs.shape))), ok.reshape(a.shape[:-2])
 
 
@@ -663,16 +664,22 @@ def solverank1sdp(
 
     Two entry forms, as the reference: solverank1sdp(constraints, b,
     blockinfo; ...) with constraints[j] = (A, B, c, H) host data, packed
-    onto ``device`` (default "cpu"), or solverank1sdp(problem=SDPProblem)
-    on the problem's own device.  Only precision_k=2 is ported.
+    in ``precision_k`` limbs (2..12) onto ``device`` (default the CUDA
+    card; a machine without one raises, and device="cpu" runs on the
+    CPU), or solverank1sdp(problem=SDPProblem) on the problem's own
+    device.
     """
     cfg = SolverConfig(**kwargs)
     if problem is None:
         from clrs_tpu_torch.core.problem import pack_constraints
 
+        if device is None:
+            device = "cuda"
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("solverank1sdp: no CUDA device; pass device='cpu' "
+                               "to solve on the CPU")
         problem = pack_constraints(constraints, b, info=blockinfo, C=C, b0=b0,
-                                   k=precision_k,
-                                   device="cpu" if device is None else device)
+                                   k=precision_k, device=device)
     elif device is not None:
         problem = problem.to(device)
     dev = problem.device

@@ -1,10 +1,12 @@
-// Double-double device functions shared by every kernel of the port.
+// Float-expansion device functions shared by every kernel of the port.
 //
 // Restates ops/pallas_dd.py:_Ops (the error-free transforms and the QD
-// library's dd sequences) on scalar (hi, lo) pairs.  The plain PyTorch
-// versions of the kernels (clrs_tpu_torch/ops/cuda_dd.py, cuda_xf.py)
-// perform the same operations in the same order, so a kernel and its plain
-// version agree bit for bit.
+// library's dd sequences) on scalar (hi, lo) pairs, and
+// ops/pallas_xf.py:_XOps (the k-limb cascades) on register arrays of K
+// limbs.  The plain PyTorch versions of the kernels
+// (clrs_tpu_torch/ops/cuda_dd.py, cuda_xf.py, xops.py) perform the same
+// operations in the same order, so a kernel and its plain version agree
+// bit for bit.
 //
 // Build with --fmad=false: a fused multiply-add would break Dekker's
 // two_prod and change the cross terms of dd_mul, so every product below
@@ -124,4 +126,253 @@ __device__ __forceinline__ void dd_halving_sum(double* vh, double* vl, int np2,
   rl = vl[0];
 }
 
+// ---------------------------------------------------------------------------
+// K limbs (pallas_xf._XOps; plain version clrs_tpu_torch/ops/xops.py).  At
+// K=2 add and mul are the dd sequences above; for K >= 3 they are the
+// per-order error cascades of ops/xfloat.py:_cascade_add/_cascade_mul.
+// Every function reads all of its inputs before it writes its output, so
+// the output may alias an input.
+// ---------------------------------------------------------------------------
+
+// Final renormalization of both cascades: a two_sum chain down the
+// orders, then VecSum (two_sums from the last term up).
+template <int K>
+__device__ __forceinline__ void renorm_chain(double (&v)[K], double (&r)[K]) {
+  double t[K];
+  double err;
+  two_sum(v[0], v[1], t[0], err);
+#pragma unroll
+  for (int i = 2; i < K; ++i) two_sum(err, v[i], t[i - 1], err);
+  t[K - 1] = err;
+  double s = t[K - 1];
+#pragma unroll
+  for (int i = K - 2; i >= 0; --i) two_sum(t[i], s, s, r[i + 1]);
+  r[0] = s;
+}
+
+template <int K>
+__device__ __forceinline__ void xf_add(const double (&a)[K], const double (&b)[K],
+                                       double (&r)[K]) {
+  if constexpr (K == 2) {
+    dd_add(a[0], a[1], b[0], b[1], r[0], r[1]);
+  } else {
+    double s[K], e[K], v[K], carry[K];
+#pragma unroll
+    for (int i = 0; i < K - 1; ++i) two_sum(a[i], b[i], s[i], e[i]);
+    double top = a[K - 1] + b[K - 1];
+    v[0] = s[0];
+    carry[0] = e[0];
+#pragma unroll
+    for (int i = 1; i < K - 1; ++i) {
+      double x = s[i];
+#pragma unroll
+      for (int c = 0; c < i; ++c) two_sum(x, carry[c], x, carry[c]);
+      v[i] = x;
+      carry[i] = e[i];
+    }
+#pragma unroll
+    for (int c = 0; c < K - 1; ++c) top = top + carry[c];
+    v[K - 1] = top;
+    renorm_chain<K>(v, r);
+  }
+}
+
+// Fold the error g of order q - 1 into order q, and the error of that
+// into the next order, down to the top order, which adds plainly.  This
+// keeps each order's sequence of terms exactly the reference's (its
+// originals first, then the errors of the order above it in the order
+// they arise), when the orders are processed from the top down.
+template <int K>
+__device__ __forceinline__ void push_error(double (&v)[K], int q, double g) {
+#pragma unroll
+  for (int o = 1; o < K - 1; ++o)
+    if (o >= q) two_sum(v[o], g, v[o], g);
+  v[K - 1] = v[K - 1] + g;
+}
+
+// Fold term t into order o (o < K - 1) whose first term is already in v[o].
+template <int K>
+__device__ __forceinline__ void fold_term(double (&v)[K], int o, double t) {
+  double g;
+  two_sum(v[o], t, v[o], g);
+  push_error<K>(v, o + 1, g);
+}
+
+template <int K>
+__device__ __forceinline__ void xf_mul(const double (&a)[K], const double (&b)[K],
+                                       double (&r)[K]) {
+  if constexpr (K == 2) {
+    dd_mul(a[0], a[1], b[0], b[1], r[0], r[1]);
+  } else {
+    // Order o holds the products a[i] b[o-i] of order o and the errors of
+    // the products of order o - 1; the reference lists, per order, the
+    // errors of order o - 1 (by i), then the products of order o (by i),
+    // then the two_sum errors of order o - 1's combine.
+    double v[K], p_hi[K], p_lo[K];
+    double p, e;
+    // top order K-1: errors of order K-2, then the plain products of
+    // orders K-1 and K
+#pragma unroll
+    for (int i = 0; i <= K - 2; ++i) {
+      two_prod(a[i], b[K - 2 - i], p, e);
+      p_hi[i] = p;
+      v[K - 1] = (i == 0) ? e : v[K - 1] + e;
+    }
+    double cheap = a[0] * b[K - 1];
+#pragma unroll
+    for (int i = 1; i <= K - 1; ++i) cheap = cheap + a[i] * b[K - 1 - i];
+#pragma unroll
+    for (int i = 1; i <= K - 1; ++i) cheap = cheap + a[i] * b[K - i];
+    v[K - 1] = v[K - 1] + cheap;
+    // orders K-2 .. 1, top down: errors of order o - 1, then the products
+    // of order o (saved from the step above), each error of the combine
+    // folded at once into the orders above
+#pragma unroll
+    for (int o = K - 2; o >= 1; --o) {
+#pragma unroll
+      for (int i = 0; i <= o - 1; ++i) {
+        two_prod(a[i], b[o - 1 - i], p, e);
+        p_lo[i] = p;
+        if (i == 0)
+          v[o] = e;
+        else
+          fold_term<K>(v, o, e);
+      }
+#pragma unroll
+      for (int i = 0; i <= o; ++i) fold_term<K>(v, o, p_hi[i]);
+#pragma unroll
+      for (int i = 0; i <= o - 1; ++i) p_hi[i] = p_lo[i];
+    }
+    v[0] = p_hi[0];
+    renorm_chain<K>(v, r);
+  }
+}
+
+// Out-of-line copies for the kernels whose K-limb chains are long and not
+// the inner loop (K5): one body per K instead of one per call site.
+template <int K>
+__device__ __noinline__ void xf_add_n(const double (&a)[K], const double (&b)[K],
+                                      double (&r)[K]) {
+  xf_add<K>(a, b, r);
+}
+
+template <int K>
+__device__ __noinline__ void xf_mul_n(const double (&a)[K], const double (&b)[K],
+                                      double (&r)[K]) {
+  xf_mul<K>(a, b, r);
+}
+
+// Newton steps of recip and sqrt: ceil(log2 k) + 1.
+__host__ __device__ constexpr int newton_steps(int k) {
+  int c = 0;
+  while ((1 << c) < k) ++c;
+  return c + 1;
+}
+
+// 1/b by Newton from the seed 1/b0 of a masked divisor (_XOps.recip).
+template <int K>
+__device__ void xf_recip(const double (&b)[K], double (&x)[K]) {
+  double one[K], t[K], e[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    one[q] = q == 0 ? 1.0 : 0.0;
+    x[q] = 0.0;
+  }
+  x[0] = 1.0 / (b[0] != 0.0 ? b[0] : 1.0);
+  for (int it = 0; it < newton_steps(K); ++it) {
+    xf_mul_n<K>(b, x, t);
+#pragma unroll
+    for (int q = 0; q < K; ++q) t[q] = -t[q];
+    xf_add_n<K>(one, t, e);
+    xf_mul_n<K>(x, e, t);
+    xf_add_n<K>(x, t, x);
+  }
+}
+
+// a / b with one refinement step (_XOps.div).
+template <int K>
+__device__ void xf_div(const double (&a)[K], const double (&b)[K], double (&out)[K]) {
+  double r[K], q[K], t[K], res[K];
+  xf_recip<K>(b, r);
+  xf_mul_n<K>(a, r, q);
+  xf_mul_n<K>(b, q, t);
+#pragma unroll
+  for (int i = 0; i < K; ++i) t[i] = -t[i];
+  xf_add_n<K>(a, t, res);
+  xf_mul_n<K>(res, r, t);
+  xf_add_n<K>(q, t, out);
+}
+
+// sqrt by rsqrt Newton plus one refinement (_XOps.sqrt); a >= 0, 0
+// allowed.  The seed is 1.0 / sqrt(a0), correctly rounded, never rsqrt().
+template <int K>
+__device__ void xf_sqrt(const double (&a)[K], double (&out)[K]) {
+  const bool pos = a[0] > 0.0;
+  double safe[K], one[K], x[K], t[K], u[K], e[K], s[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    safe[q] = pos ? a[q] : (q == 0 ? 1.0 : 0.0);
+    one[q] = q == 0 ? 1.0 : 0.0;
+    x[q] = 0.0;
+  }
+  x[0] = 1.0 / sqrt(safe[0]);
+  for (int it = 0; it < newton_steps(K); ++it) {
+    xf_mul_n<K>(x, x, t);
+    xf_mul_n<K>(safe, t, u);
+#pragma unroll
+    for (int q = 0; q < K; ++q) u[q] = -u[q];
+    xf_add_n<K>(one, u, e);
+    xf_mul_n<K>(x, e, t);
+#pragma unroll
+    for (int q = 0; q < K; ++q) t[q] = 0.5 * t[q];
+    xf_add_n<K>(x, t, x);
+  }
+  xf_mul_n<K>(safe, x, s);
+  xf_mul_n<K>(s, s, t);
+#pragma unroll
+  for (int q = 0; q < K; ++q) t[q] = -t[q];
+  xf_add_n<K>(safe, t, e);
+  xf_mul_n<K>(e, x, t);
+#pragma unroll
+  for (int q = 0; q < K; ++q) t[q] = 0.5 * t[q];
+  xf_add_n<K>(s, t, s);
+#pragma unroll
+  for (int q = 0; q < K; ++q) out[q] = pos ? s[q] : 0.0;
+}
+
+// Load / store K limbs at a limb stride.
+template <int K>
+__device__ __forceinline__ void load_xf(const double* p, size_t limb_stride,
+                                        double (&x)[K]) {
+#pragma unroll
+  for (int q = 0; q < K; ++q) x[q] = p[q * limb_stride];
+}
+
+template <int K>
+__device__ __forceinline__ void store_xf(double* p, size_t limb_stride,
+                                         const double (&x)[K]) {
+#pragma unroll
+  for (int q = 0; q < K; ++q) p[q * limb_stride] = x[q];
+}
+
+// K-limb zero-padded halving tree over v[0..np2) (unit stride within a
+// limb; limbs limb_stride apart), in place (_XOps.sum_axis).  The caller
+// fills v[n..np2) with zeros first.
+template <int K>
+__device__ void xf_halving_sum(double* v, size_t limb_stride, int np2, double (&r)[K]) {
+  double x[K], y[K];
+  for (int half = np2 / 2; half >= 1; half /= 2) {
+    for (int t = 0; t < half; ++t) {
+      load_xf<K>(v + t, limb_stride, x);
+      load_xf<K>(v + t + half, limb_stride, y);
+      xf_add_n<K>(x, y, x);
+      store_xf<K>(v + t, limb_stride, x);
+    }
+  }
+  load_xf<K>(v, limb_stride, r);
+}
+
 }  // namespace clrs
+
+// The limb counts the k-limb kernels are instantiated for.
+#define CLRS_FOR_EACH_K(X) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12)

@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles every ``clrs_tpu_torch/csrc/*.cu`` into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), for ``sm_90a`` with ``--fmad=false`` (the error-free transforms
-must not be contracted into fused multiply-adds).  The library lands in
-``build/clrs_tpu_torch/`` at the repository root, named by a hash of the
-sources and flags, so a changed source is rebuilt.  A failed build raises;
-nothing falls back to the plain PyTorch versions.
+``nvcc`` compiles every ``clrs_tpu_torch/csrc/*.cu`` (a plain C interface,
+no PyTorch headers) for ``sm_90a`` with ``--fmad=false`` (the error-free
+transforms must not be contracted into fused multiply-adds), one process
+per source, all started together, and links the objects into one shared
+library.  The library lands in ``build/clrs_tpu_torch/`` at the repository
+root, named by a hash of the sources and flags, so a changed source is
+rebuilt; beside it, ``<library>.log`` keeps each source's compile seconds
+and ptxas's register and spill report.  A failed build raises; nothing
+falls back to the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -25,20 +28,22 @@ BUILD_DIR = _PKG.parent / "build" / "clrs_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
     # a, out, okf, scratch, B, n, np2, stream
-    "clrs_spd_inverse_dd": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int, _P],
-    # a4, b4, hh, out, G, P2, T, stream
-    "clrs_schur_pairs_dd": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_int, _P],
+    "clrs_spd_inverse_dd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # k, a, out, okf, scratch, B, n, np2, stream
+    "clrs_spd_inverse_xf": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # k, a4, b4, hh, out, G, P2, T, stream
+    "clrs_schur_pairs": [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     # a, b, c, B, n, K, m, stream
-    "clrs_matmul_dd": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, _P],
+    "clrs_matmul_dd": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    # k, a, b, c, B, n, K, Kp, m, stream
+    "clrs_matmul_xf": [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -68,6 +73,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libclrs_kernels_{h.hexdigest()[:16]}.so"
 
 
+def log_path() -> Path:
+    return library_path().with_suffix(".log")
+
+
+def _run(cmd, t0):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    return time.time() - t0, proc.stdout + proc.stderr
+
+
 def build() -> Path:
     """Compile the kernels unless a library of the current sources exists;
     returns its path."""
@@ -78,16 +96,24 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, cu)]
+    tmp.mkdir()
+    nvcc = _nvcc()
+    objs = [tmp / (src.stem + ".o") for src in cu]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
+    with ThreadPoolExecutor(max_workers=len(cu)) as pool:
+        runs = list(pool.map(
+            lambda so: _run([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                             str(so[1]), str(so[0])], t0),
+            zip(cu, objs)))
+    _run([nvcc, "-shared", "-o", str(tmp / path.name), *map(str, objs)], t0)
     build_seconds = time.time() - t0
+    log = [f"build {build_seconds:.2f} s"]
+    for src, (secs, out) in zip(cu, runs):
+        log += [f"== {src.name}: compiled in {secs:.2f} s", out]
+    (tmp / "build.log").write_text("\n".join(log))
+    os.replace(tmp / "build.log", log_path())
+    os.replace(tmp / path.name, path)
+    shutil.rmtree(tmp, ignore_errors=True)
     return path
 
 
@@ -104,7 +130,10 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(rc: int, name: str):
-    """Raise on a nonzero cudaError_t returned by a C entry."""
+def check(rc: int, name: str, k: int = 2):
+    """Raise on a nonzero return of a C entry: -1 for a limb count the
+    library holds no kernel for, else a cudaError_t of the launch."""
+    if rc == -1:
+        raise NotImplementedError(f"{name}: no kernel built for k={k}")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")

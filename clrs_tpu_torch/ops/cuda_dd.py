@@ -3,9 +3,9 @@ batched SPD inverse, each beside its plain PyTorch version.
 
 K0 is ``csrc/eft.cuh``: the dd sequences of ``ops/pallas_dd.py:_Ops``
 (two_sum, fast_two_sum, split, two_prod, add, mul, div, sqrt and the
-zero-padded halving sum).  Its plain versions are ``dd_sum_axis`` below
-and, from ops/xfloat.py, ``dd_add``/``dd_mul`` and ``xf_div``/``xf_sqrt``
-at k=2 (the ``_Ops`` div and sqrt sequences are theirs).
+zero-padded halving sum).  Its plain versions are ``xops.sum_axis`` and,
+from ops/xfloat.py, ``dd_add``/``dd_mul`` and ``xf_div``/``xf_sqrt`` at
+k=2 (the ``_Ops`` div and sqrt sequences are theirs).
 
 K1 is ``csrc/spd_inverse_dd.cu`` (replaces
 ``pallas_dd._spd_inverse_kernel``).  ``dd_spd_inverse`` is its wrapper: a
@@ -23,37 +23,12 @@ from typing import Tuple
 
 import torch
 
-from clrs_tpu_torch.ops import _build
+from clrs_tpu_torch.ops import _build, xops
 from clrs_tpu_torch.ops.xfloat import F64, XF, dd_add, dd_mul, xf_div, xf_sqrt
 
 
 def _dd_div(ah, al, bh, bl):
     return tuple(xf_div(XF(torch.stack([ah, al])), XF(torch.stack([bh, bl]))).limbs)
-
-# ---------------------------------------------------------------------------
-# K0 plain version of the halving sum (dd div/sqrt are xfloat's at k=2)
-# ---------------------------------------------------------------------------
-
-
-def dd_sum_axis(ph, pl, axis: int):
-    """dd sum along an axis: zero-padded halving tree (pallas_dd.py:128)."""
-    axis = axis % ph.ndim
-    m = ph.shape[axis]
-    np2 = 1
-    while np2 < m:
-        np2 *= 2
-    if np2 != m:
-        pad_shape = list(ph.shape)
-        pad_shape[axis] = np2 - m
-        z = torch.zeros(pad_shape, dtype=ph.dtype, device=ph.device)
-        ph = torch.cat([ph, z], dim=axis)
-        pl = torch.cat([pl, z], dim=axis)
-    while np2 > 1:
-        half = np2 // 2
-        ph, pl = dd_add(ph.narrow(axis, 0, half), pl.narrow(axis, 0, half),
-                        ph.narrow(axis, half, half), pl.narrow(axis, half, half))
-        np2 = half
-    return ph.squeeze(axis), pl.squeeze(axis)
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +51,7 @@ def dd_spd_inverse_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     for j in range(n):
         # s = A[:, j] - L @ L[j, :]
         ph, pl = dd_mul(Lh, Ll, Lh[:, j:j + 1, :], Ll[:, j:j + 1, :])
-        acch, accl = dd_sum_axis(ph, pl, axis=-1)
+        acch, accl = xops.sum_axis([ph, pl], axis=-1)
         sh, sl = dd_add(Ah[:, :, j], Al[:, :, j], -acch, -accl)  # (B, n)
         djh, djl = sh[:, j], sl[:, j]
         pos = djh > 0
@@ -92,7 +67,7 @@ def dd_spd_inverse_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     Wl = torch.zeros_like(Lh)
     for i in range(n):
         ph, pl = dd_mul(Lh[:, i, :, None], Ll[:, i, :, None], Wh, Wl)
-        acch, accl = dd_sum_axis(ph, pl, axis=-2)  # (B, n) over t
+        acch, accl = xops.sum_axis([ph, pl], axis=-2)  # (B, n) over t
         ei = (rows == i).to(F64).expand(B, n)
         nh, nl = dd_add(ei, torch.zeros_like(ei), -acch, -accl)
         qh, ql = _dd_div(nh, nl, Lh[:, i, i, None], Ll[:, i, i, None])

@@ -1,29 +1,36 @@
-"""Double-double kernels K2 and K3, each beside its plain PyTorch version.
+"""The kernels of ``pallas_xf.py``, each beside its plain PyTorch version.
 
-K2 is ``csrc/schur_pairs.cu`` (replaces
-``pallas_xf._schur_pairs_kernel_k`` at k=2): the elementwise Schur core
-w = ((a1 b1 + a2 b2) + (a3 b3 + a4 b4)) HH.  K3 is ``csrc/matmul_dd.cu``
-(replaces ``pallas_xf._matmul_kernel``): the batched dd matmul by
-sequential rank-1 accumulation.
+K2 is ``csrc/schur_pairs.cu`` (replaces ``pallas_xf._schur_pairs_kernel_k``
+at every k): the elementwise Schur core w = ((a1 b1 + a2 b2) + (a3 b3 +
+a4 b4)) HH.  K3 is ``csrc/matmul_dd.cu`` (replaces
+``pallas_xf._matmul_kernel``): the batched dd matmul by sequential rank-1
+accumulation.  K4 is ``csrc/matmul_xf.cu`` (replaces
+``pallas_xf._matmul_kernel_k`` and its tiled form K6): the same at k >= 3,
+its contraction zero-padded to a multiple of 8 as the Pallas wrappers pad
+it.  K5 is ``csrc/spd_inverse_xf.cu`` (replaces
+``pallas_xf._spd_inverse_kernel_k``): the batched SPD inverse at k >= 3.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises), counting launches in its
 ``launches`` attribute.  The plain versions perform the kernels'
-operations in the kernels' order, so the two agree bit for bit; K3's
-sequential accumulation differs from ``xfloat.xf_matmul``'s product tree
-in the low limbs, by design, as on the TPU.
+operations in the kernels' order (K3 on ``xfloat``'s dd sequences, the
+others on ``ops/xops.py``, the kernels' own arithmetic), so the two agree
+bit for bit.  The sequential accumulations differ from ``xfloat.xf_matmul``'s
+product tree in the low limbs, by design, as on the TPU.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-from clrs_tpu_torch.ops import _build
+from clrs_tpu_torch.ops import _build, xops
+from clrs_tpu_torch.ops.cuda_dd import xf_spd_inverse_batched as _dd_spd_inverse_batched
 from clrs_tpu_torch.ops.xfloat import (
     F64,
     XF,
     dd_add,
-    dd_mul,
     fast_two_sum,
     two_prod,
 )
@@ -37,6 +44,17 @@ def _check_cuda(name: str, *ts: torch.Tensor):
             raise ValueError(f"{name}: need float64 limbs, got {t.dtype}")
 
 
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _np2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
 # ---------------------------------------------------------------------------
 # K2: Schur pairs core
 # ---------------------------------------------------------------------------
@@ -44,15 +62,13 @@ def _check_cuda(name: str, *ts: torch.Tensor):
 
 def schur_pairs_torch(a4: torch.Tensor, b4: torch.Tensor,
                       hh: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: a4, b4 (2, G, P2, 4, T, T), hh (2, G, T, T) ->
-    (2, G, P2, T, T)."""
-    p = [dd_mul(a4[0, :, :, i], a4[1, :, :, i], b4[0, :, :, i], b4[1, :, :, i])
-         for i in range(4)]
-    s12 = dd_add(*p[0], *p[1])
-    s34 = dd_add(*p[2], *p[3])
-    sh, sl = dd_add(*s12, *s34)
-    wh, wl = dd_mul(sh, sl, hh[0][:, None], hh[1][:, None])
-    return torch.stack([wh, wl])
+    """Plain version of K2: a4, b4 (k, G, P2, 4, T, T), hh (k, G, T, T) ->
+    (k, G, P2, T, T)."""
+    k = a4.shape[0]
+    p = [xops.mul([a4[q, :, :, i] for q in range(k)],
+                  [b4[q, :, :, i] for q in range(k)]) for i in range(4)]
+    s = xops.add(xops.add(p[0], p[1]), xops.add(p[2], p[3]))
+    return torch.stack(xops.mul(s, [hh[q][:, None] for q in range(k)]))
 
 
 def schur_pairs(a4: torch.Tensor, b4: torch.Tensor, hh: torch.Tensor) -> torch.Tensor:
@@ -60,18 +76,17 @@ def schur_pairs(a4: torch.Tensor, b4: torch.Tensor, hh: torch.Tensor) -> torch.T
     if a4.device.type == "cpu":
         return schur_pairs_torch(a4, b4, hh)
     _check_cuda("schur_pairs", a4, b4, hh)
-    _, G, P2, four, T, T2 = a4.shape
+    k, G, P2, four, T, T2 = a4.shape
     if four != 4 or T != T2 or tuple(b4.shape) != tuple(a4.shape) \
-            or tuple(hh.shape) != (2, G, T, T):
+            or tuple(hh.shape) != (k, G, T, T):
         raise ValueError(f"schur_pairs: bad shapes {tuple(a4.shape)} "
                          f"{tuple(b4.shape)} {tuple(hh.shape)}")
     a4, b4, hh = a4.contiguous(), b4.contiguous(), hh.contiguous()
-    out = torch.empty((2, G, P2, T, T), dtype=F64, device=a4.device)
-    lib = _build.library()
-    rc = lib.clrs_schur_pairs_dd(
-        a4.data_ptr(), b4.data_ptr(), hh.data_ptr(), out.data_ptr(), G, P2, T,
-        torch.cuda.current_stream(a4.device).cuda_stream)
-    _build.check(rc, "clrs_schur_pairs_dd")
+    out = torch.empty((k, G, P2, T, T), dtype=F64, device=a4.device)
+    rc = _build.library().clrs_schur_pairs(
+        k, a4.data_ptr(), b4.data_ptr(), hh.data_ptr(), out.data_ptr(), G, P2, T,
+        _stream(a4))
+    _build.check(rc, "clrs_schur_pairs", k)
     schur_pairs.launches += 1
     return out
 
@@ -112,10 +127,8 @@ def dd_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     m = b.shape[-1]
     a, b = a.contiguous(), b.contiguous()
     c = torch.empty((2, B, n, m), dtype=F64, device=a.device)
-    lib = _build.library()
-    rc = lib.clrs_matmul_dd(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), B, n, K, m,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    rc = _build.library().clrs_matmul_dd(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), B, n, K, m, _stream(a))
     _build.check(rc, "clrs_matmul_dd")
     dd_matmul.launches += 1
     return c
@@ -124,14 +137,153 @@ def dd_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 dd_matmul.launches = 0
 
 
-def xf_matmul_dd(a: XF, b: XF) -> XF:
-    """(..., n, K) x (..., K, m) through K3; leading batch axes broadcast
-    and are flattened into the kernel's batch."""
-    if a.k != 2 or b.k != 2:
-        raise NotImplementedError("K3 is the k=2 matmul")
+# ---------------------------------------------------------------------------
+# K4 (+K6): batched k-limb matmul
+# ---------------------------------------------------------------------------
+
+
+def padded_contraction(K: int) -> int:
+    """The Pallas wrappers' zero-padded contraction length: K rounded up
+    to a multiple of 8 (pallas_xf.py:351-356, 514-518, 1115)."""
+    return (K + 7) // 8 * 8
+
+
+def matmul_xf_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: a (k, B, n, K), b (k, B, K, m) -> (k, B, n, m),
+    acc = add(acc, mul(a[:, r], b[r, :])) for r over the zero-padded
+    contraction in order."""
+    k, B, n, K = a.shape
+    m = b.shape[-1]
+    Kp = padded_contraction(K)
+    acc = [torch.zeros((B, n, m), dtype=F64, device=a.device) for _ in range(k)]
+    zero_a = torch.zeros((B, n, 1), dtype=F64, device=a.device)
+    zero_b = torch.zeros((B, 1, m), dtype=F64, device=a.device)
+    for r in range(Kp):
+        if r < K:
+            x = [a[q, :, :, r:r + 1] for q in range(k)]
+            y = [b[q, :, r:r + 1, :] for q in range(k)]
+        else:
+            x, y = [zero_a] * k, [zero_b] * k
+        acc = xops.add(acc, xops.mul(x, y))
+    return torch.stack(acc)
+
+
+def matmul_xf(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4 wrapper (shapes as matmul_xf_torch), k >= 3."""
+    if a.device.type == "cpu":
+        return matmul_xf_torch(a, b)
+    _check_cuda("matmul_xf", a, b)
+    k, B, n, K = a.shape
+    if k < 3 or tuple(b.shape[:3]) != (k, B, K):
+        raise ValueError(f"matmul_xf: bad shapes {tuple(a.shape)} {tuple(b.shape)}")
+    m = b.shape[-1]
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((k, B, n, m), dtype=F64, device=a.device)
+    rc = _build.library().clrs_matmul_xf(
+        k, a.data_ptr(), b.data_ptr(), c.data_ptr(), B, n, K, padded_contraction(K), m,
+        _stream(a))
+    _build.check(rc, "clrs_matmul_xf", k)
+    matmul_xf.launches += 1
+    return c
+
+
+matmul_xf.launches = 0
+
+
+def xf_matmul_k(a: XF, b: XF) -> XF:
+    """(..., n, K) x (..., K, m) through K3 (k=2) or K4 (k >= 3); leading
+    batch axes broadcast and are flattened into the kernel's batch."""
+    k = a.k
+    if b.k != k:
+        raise NotImplementedError(f"mixed limb counts {a.k} and {b.k}")
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     n, K = a.shape[-2:]
     m = b.shape[-1]
-    al = torch.broadcast_to(a.limbs, (2,) + batch + (n, K)).reshape(2, -1, n, K)
-    bl = torch.broadcast_to(b.limbs, (2,) + batch + (K, m)).reshape(2, -1, K, m)
-    return XF(dd_matmul(al, bl).reshape((2,) + batch + (n, m)))
+    al = torch.broadcast_to(a.limbs, (k,) + batch + (n, K)).reshape(k, -1, n, K)
+    bl = torch.broadcast_to(b.limbs, (k,) + batch + (K, m)).reshape(k, -1, K, m)
+    out = dd_matmul(al, bl) if k == 2 else matmul_xf(al, bl)
+    return XF(out.reshape((k,) + batch + (n, m)))
+
+
+# ---------------------------------------------------------------------------
+# K5: batched k-limb SPD inverse
+# ---------------------------------------------------------------------------
+
+
+def spd_inverse_xf_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5: limbs (B, k, n, n) -> (inv (B, k, n, n), ok
+    (B,)).  Per block: Cholesky by columns with the pivot flag on the
+    leading limb, W = L^-1 by rows, A^-1 = W^T W by sequential rank-1
+    accumulation; every matvec through the zero-padded halving tree."""
+    B, k, n, _ = limbs.shape
+    dev = limbs.device
+    A = [limbs[:, q] for q in range(k)]
+    L = [torch.zeros((B, n, n), dtype=F64, device=dev) for _ in range(k)]
+    okf = torch.ones((B, n), dtype=torch.bool, device=dev)
+    rows = torch.arange(n, device=dev)
+    for j in range(n):
+        # s = A[:, j] - L @ L[j, :]
+        acc = xops.sum_axis(xops.mul(L, [x[:, j:j + 1, :] for x in L]), axis=-1)
+        s = xops.add([x[:, :, j] for x in A], xops.neg(acc))  # (B, n)
+        pos = s[0][:, j] > 0
+        okf[:, j] = pos
+        safe = [torch.where(pos, s[0][:, j], 1.0)] + [
+            torch.where(pos, x[:, j], 0.0) for x in s[1:]]
+        ljj = xops.sqrt(safe)
+        c = xops.div(s, [x[:, None] for x in ljj])
+        at, below = rows == j, rows > j
+        for q in range(k):
+            L[q][:, :, j] = torch.where(at, ljj[q][:, None],
+                                        torch.where(below, c[q], 0.0))
+    # W = L^-1 by forward substitution, one row at a time
+    W = [torch.zeros((B, n, n), dtype=F64, device=dev) for _ in range(k)]
+    for i in range(n):
+        acc = xops.sum_axis(xops.mul([x[:, i, :, None] for x in L], W), axis=-2)
+        ei = (rows == i).to(F64).expand(B, n)
+        nrm = xops.add([ei] + [torch.zeros_like(ei)] * (k - 1), xops.neg(acc))
+        qv = xops.div(nrm, [x[:, i, i, None] for x in L])
+        for q in range(k):
+            W[q][:, i, :] = qv[q]
+    # inv = W^T W
+    acc = [torch.zeros((B, n, n), dtype=F64, device=dev) for _ in range(k)]
+    for t in range(n):
+        r = [x[:, t, :] for x in W]
+        acc = xops.add(acc, xops.mul([x[:, :, None] for x in r],
+                                     [x[:, None, :] for x in r]))
+    return torch.stack(acc, dim=1), torch.all(okf, dim=1)
+
+
+def spd_inverse_xf(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 wrapper: limbs (B, k, n, n) float64, k >= 3 -> (inv, ok (B,))."""
+    if limbs.device.type == "cpu":
+        return spd_inverse_xf_torch(limbs)
+    _check_cuda("spd_inverse_xf", limbs)
+    B, k, n, n2 = limbs.shape
+    if k < 3 or n != n2:
+        raise ValueError(f"spd_inverse_xf: need (B, k>=3, n, n), got {tuple(limbs.shape)}")
+    if n > 1024:
+        raise ValueError(f"spd_inverse_xf: n={n} > 1024 (one thread per row)")
+    limbs = limbs.contiguous()
+    np2 = _np2(n)
+    out = torch.empty_like(limbs)
+    okf = torch.empty((B, n), dtype=F64, device=limbs.device)
+    scratch = torch.empty((B * k * (2 * n * n + n * np2),), dtype=F64,
+                          device=limbs.device)
+    rc = _build.library().clrs_spd_inverse_xf(
+        k, limbs.data_ptr(), out.data_ptr(), okf.data_ptr(), scratch.data_ptr(),
+        B, n, np2, _stream(limbs))
+    _build.check(rc, "clrs_spd_inverse_xf", k)
+    spd_inverse_xf.launches += 1
+    return out, torch.all(okf > 0.5, dim=1)
+
+
+spd_inverse_xf.launches = 0
+
+
+def xf_spd_inverse_batched(x_limbs: torch.Tensor):
+    """SPD inverse of the stacked-XF layout, limbs (k, B, n, n): K1 at
+    k=2, K5 at k >= 3."""
+    if x_limbs.shape[0] == 2:
+        return _dd_spd_inverse_batched(x_limbs)
+    inv, ok = spd_inverse_xf(x_limbs.transpose(0, 1))
+    return inv.transpose(0, 1), ok

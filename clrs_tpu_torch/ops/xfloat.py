@@ -1,18 +1,20 @@
-"""Double-double float-expansion arithmetic on torch tensors.
+"""k-limb float-expansion arithmetic on torch tensors.
 
 An ``XF`` value is an unevaluated sum of k float64 "limbs"
 x = l_0 + l_1 + ... + l_{k-1}, stored as ONE tensor of shape (k, *shape)
 on an explicit device.  This module is the torch counterpart of
-``clrs_tpu/ops/xfloat.py`` at k=2 (double-double, the QD library's
-sequences): every function performs the reference's operations in the
-reference's order, so on float64 limbs the two packages agree limb for
-limb.  k >= 3 raises ``NotImplementedError``.
+``clrs_tpu/ops/xfloat.py`` for k = 2..12: the QD library's double-double
+sequences at k=2, the triple- and quad-word sequences at k=3 and 4, the
+per-order error cascades at 5 <= k <= 12 (and for mixed limb counts).
+Every function performs the reference's operations in the reference's
+order, so on float64 limbs the two packages agree limb for limb.
 
 What the reference carries and this module leaves out: scaled expansions
 (a TPU float32 exponent-range workaround), the XLA optimization barriers
 (eager torch never rewrites ``(a+b)-a`` to ``b``, and each op rounds on
-its own, so nothing contracts into an FMA), the ``_loop_*`` k >= 13
-kernels and the elementwise-Pallas gate.
+its own, so nothing contracts into an FMA), the ``_loop_*`` kernels that
+take k >= 13 (such a k raises ``NotImplementedError``) and the
+elementwise-Pallas gate.
 
 Never reduce limbs with ``torch.sum``/``torch.matmul``: their summation
 order is the library's, which breaks the error-free transforms and the
@@ -70,6 +72,17 @@ def two_prod(a, b):
     return p, e
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float64 square root on any device.  torch's CPU
+    kernel is not: it misses by one ulp on ~0.8 % of random float64
+    inputs (torch 2.13 CPU build, against numpy and mpmath), which would
+    break the limb-for-limb agreement of every sqrt seed.  numpy's and
+    CUDA's double sqrt are IEEE correctly rounded."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))
+    return torch.sqrt(x)
+
+
 def _vec_sum(terms):
     """VecSum: chain of two_sums from the last term up; terms[0] of the
     result is fl(sum of inputs) (exact transform)."""
@@ -114,10 +127,14 @@ def _renorm(terms, k: int, passes: int = 2):
     return _vec_sum_err_branch(terms, k)
 
 
-def _need_dd(k: int):
-    if k != 2:
+MAX_K = 12  # beyond this the reference switches to its _loop_* kernels
+
+
+def _check_k(k: int):
+    if not 2 <= k <= MAX_K:
         raise NotImplementedError(
-            f"k={k}: only double-double (k=2) is ported so far")
+            f"k={k}: the port computes in 2..{MAX_K} limbs; above {MAX_K} the "
+            "reference runs its _loop_add/_loop_mul kernels, not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -303,14 +320,14 @@ def _lift2(a, b):
 
 
 def _operands(a: XF, b: XF):
-    """Limb lists of a and b broadcast to their common value shape."""
-    _need_dd(max(a.k, b.k))
-    if a.k != b.k:
-        raise NotImplementedError(f"mixed limb counts {a.k} and {b.k}")
+    """Limb lists of a and b broadcast to their common value shape, and
+    the result's limb count max(a.k, b.k)."""
+    k = max(a.k, b.k)
+    _check_k(k)
     shape = torch.broadcast_shapes(a.shape, b.shape)
     al = [torch.broadcast_to(a.limbs[i], shape) for i in range(a.k)]
     bl = [torch.broadcast_to(b.limbs[i], shape) for i in range(b.k)]
-    return al, bl
+    return al, bl, k
 
 
 # ---------------------------------------------------------------------------
@@ -335,22 +352,191 @@ def dd_mul(ah, al, bh, bl):
     return fast_two_sum(p, e)
 
 
+def _renorm_chain(vals):
+    """The cascades' final renormalization: a two_sum chain down the
+    orders, then a VecSum pull-up for canonical leading limbs."""
+    r = []
+    hi, err = two_sum(vals[0], vals[1])
+    r.append(hi)
+    for v in vals[2:]:
+        hi, err = two_sum(err, v)
+        r.append(hi)
+    r.append(err)
+    return _vec_sum(r)
+
+
+def cascade_add(al, bl, k: int):
+    """k-limb add of equal-length limb lists by per-order error cascades
+    (xfloat.py:860-898): exact two_sums per order, errors pushed one order
+    down, plain folds only at the top order."""
+    s, e = [], []
+    for i in range(k - 1):
+        si, ei = two_sum(al[i], bl[i])
+        s.append(si)
+        e.append(ei)
+    vals = [s[0]]
+    carry = [e[0]]  # errors destined for the current order
+    for i in range(1, k - 1):
+        v = s[i]
+        nxt = []
+        for c in carry:
+            v, g = two_sum(v, c)
+            nxt.append(g)
+        vals.append(v)
+        nxt.append(e[i])
+        carry = nxt
+    top = al[k - 1] + bl[k - 1]
+    for c in carry:
+        top = top + c
+    vals.append(top)
+    return _renorm_chain(vals)
+
+
+def cascade_mul(al, bl, k: int):
+    """k-limb multiply of limb lists (any lengths) by per-order error
+    cascades (xfloat.py:1038-1084): exact two_prods for the orders
+    0..k-2 with their errors pushed one order down, plain products folded
+    at orders k-1 and k, per-order two_sum combines."""
+    ka, kb = len(al), len(bl)
+    groups = [[] for _ in range(k)]
+    for o in range(k - 1):
+        for i in range(o + 1):
+            j = o - i
+            if i < ka and j < kb:
+                p, e = two_prod(al[i], bl[j])
+                groups[o].append(p)
+                groups[o + 1].append(e)
+    cheap = None
+    for o in (k - 1, k):
+        for i in range(o + 1):
+            j = o - i
+            if i < ka and j < kb:
+                t = al[i] * bl[j]
+                cheap = t if cheap is None else cheap + t
+    if cheap is not None:
+        groups[k - 1].append(cheap)
+    vals = []
+    for o in range(k):
+        terms = groups[o]
+        if not terms:
+            vals.append(torch.zeros_like(al[0]))
+            continue
+        v = terms[0]
+        for t in terms[1:]:
+            if o == k - 1:
+                v = v + t  # below the last limb's ulp
+            else:
+                v, g = two_sum(v, t)
+                groups[o + 1].append(g)
+        vals.append(v)
+    return _renorm_chain(vals)
+
+
+def _td_add(al, bl):
+    """Triple-word add (xfloat.py:912-925)."""
+    s0, e0 = two_sum(al[0], bl[0])
+    s1, e1 = two_sum(al[1], bl[1])
+    s2 = al[2] + bl[2]
+    t1, t2 = two_sum(s1, e0)
+    o2 = (s2 + e1) + t2
+    r0, u = two_sum(s0, t1)
+    r1, r2 = two_sum(u, o2)
+    return _vec_sum([r0, r1, r2])
+
+
+def _td_mul(al, bl):
+    """Triple-word multiply (xfloat.py:928-939)."""
+    p00, e00 = two_prod(al[0], bl[0])
+    p01, e01 = two_prod(al[0], bl[1])
+    p10, e10 = two_prod(al[1], bl[0])
+    o2 = ((al[0] * bl[2] + al[2] * bl[0]) + al[1] * bl[1]) + (e01 + e10)
+    t1, t2 = two_sum(p01, p10)
+    t1, t3 = two_sum(t1, e00)
+    o2t = o2 + (t2 + t3)
+    r0, u = two_sum(p00, t1)
+    r1, r2 = two_sum(u, o2t)
+    return _vec_sum([r0, r1, r2])
+
+
+def _qw_add(al, bl):
+    """Quad-word add (xfloat.py:942-959)."""
+    s0, e0 = two_sum(al[0], bl[0])
+    s1, e1 = two_sum(al[1], bl[1])
+    s2, e2 = two_sum(al[2], bl[2])
+    s3 = al[3] + bl[3]
+    t1, f1 = two_sum(s1, e0)
+    u2, f2 = two_sum(s2, e1)
+    u2, f3 = two_sum(u2, f1)
+    o3 = ((s3 + e2) + f2) + f3
+    r0, a1 = two_sum(s0, t1)
+    r1, a2 = two_sum(a1, u2)
+    r2, r3 = two_sum(a2, o3)
+    return _vec_sum([r0, r1, r2, r3])
+
+
+def _qw_mul(al, bl):
+    """Quad-word multiply (xfloat.py:962-990)."""
+    p00, q00 = two_prod(al[0], bl[0])
+    p01, q01 = two_prod(al[0], bl[1])
+    p10, q10 = two_prod(al[1], bl[0])
+    p02, q02 = two_prod(al[0], bl[2])
+    p11, q11 = two_prod(al[1], bl[1])
+    p20, q20 = two_prod(al[2], bl[0])
+    o3 = ((al[0] * bl[3] + al[3] * bl[0])
+          + (al[1] * bl[2] + al[2] * bl[1])
+          + ((q02 + q11) + q20))
+    t1, f1 = two_sum(p01, p10)
+    t1, f2 = two_sum(t1, q00)
+    u2, g1 = two_sum(p02, p11)
+    u2, g2 = two_sum(u2, p20)
+    u2, g3 = two_sum(u2, q01)
+    u2, g4 = two_sum(u2, q10)
+    u2, g5 = two_sum(u2, f1)
+    u2, g6 = two_sum(u2, f2)
+    o3 = o3 + (((g1 + g2) + (g3 + g4)) + (g5 + g6))
+    r0, a1 = two_sum(p00, t1)
+    r1, a2 = two_sum(a1, u2)
+    r2, r3 = two_sum(a2, o3)
+    return _vec_sum([r0, r1, r2, r3])
+
+
 def xf_add(a: XF, b: XF) -> XF:
+    """The reference's dispatch (xfloat.py:741-777): dd, triple-word and
+    quad-word sequences at matching k = 2, 3, 4; otherwise the shorter
+    operand is padded with exact zeros and the cascade adds k limbs."""
     a, b = _lift2(a, b)
-    al, bl = _operands(a, b)
-    return XF.from_limb_list(dd_add(al[0], al[1], bl[0], bl[1]))
+    al, bl, k = _operands(a, b)
+    if a.k == b.k == 2:
+        return XF.from_limb_list(dd_add(al[0], al[1], bl[0], bl[1]))
+    if a.k == b.k == 3:
+        return XF.from_limb_list(_td_add(al, bl))
+    if a.k == b.k == 4:
+        return XF.from_limb_list(_qw_add(al, bl))
+    zero = torch.zeros_like(al[0])
+    al = al + [zero] * (k - len(al))
+    bl = bl + [zero] * (k - len(bl))
+    return XF.from_limb_list(cascade_add(al, bl, k))
 
 
 def xf_mul(a: XF, b: XF) -> XF:
+    """The reference's dispatch (xfloat.py:993-1014); mixed limb counts
+    go through the cascade unpadded."""
     a, b = _lift2(a, b)
-    al, bl = _operands(a, b)
-    return XF.from_limb_list(dd_mul(al[0], al[1], bl[0], bl[1]))
+    al, bl, k = _operands(a, b)
+    if a.k == b.k == 2:
+        return XF.from_limb_list(dd_mul(al[0], al[1], bl[0], bl[1]))
+    if a.k == b.k == 3:
+        return XF.from_limb_list(_td_mul(al, bl))
+    if a.k == b.k == 4:
+        return XF.from_limb_list(_qw_mul(al, bl))
+    return XF.from_limb_list(cascade_mul(al, bl, k))
 
 
 def xf_reciprocal(b: XF) -> XF:
-    """Newton iteration for 1/b, doubling correct bits each step."""
+    """Newton iteration for 1/b, doubling correct bits each step:
+    ceil(log2 k) + 1 steps from the float64 seed."""
     k = b.k
-    _need_dd(k)
+    _check_k(k)
     x = XF.from_float(1.0 / b.limbs[0], k=k, dtype=b.dtype)
     n_iter = max(1, math.ceil(math.log2(k)) + 1)
     for _ in range(n_iter):
@@ -372,12 +558,13 @@ def xf_div(a: XF, b: XF) -> XF:
 
 def xf_sqrt(a: XF) -> XF:
     """sqrt via Newton on rsqrt; a must be >= 0 (0 allowed).  The seed is
-    1/sqrt(hi), both correctly rounded in IEEE double on every device."""
+    1/sqrt(hi), both correctly rounded in IEEE double on every device
+    (``sqrt_rn``)."""
     k = a.k
-    _need_dd(k)
+    _check_k(k)
     dev = a.device
     safe_hi = torch.where(a.limbs[0] > 0, a.limbs[0], 1.0)
-    x = XF.from_float(1.0 / torch.sqrt(safe_hi), k=k, dtype=a.dtype)
+    x = XF.from_float(1.0 / sqrt_rn(safe_hi), k=k, dtype=a.dtype)
     n_iter = max(1, math.ceil(math.log2(k)) + 1)
     half = XF.from_float(0.5, k=k, dtype=a.dtype, device=dev)
     for _ in range(n_iter):

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K3 on the card, each bit for bit against its
+"""The port's CUDA kernels K1-K5 on the card, each bit for bit against its
 plain PyTorch version (the comparison that chip_smoke.py also makes at the
 main path's and at wide shapes).  These tests need an NVIDIA GPU and nvcc
 and skip elsewhere; the file imports no JAX, so it runs on the card's
@@ -66,3 +66,58 @@ def test_matmul_kernel_bitwise(cuda, B, n, K, m):
     b = rand_dd(rng, (B, K, m)).to(cuda)
     assert torch.equal(cuda_xf.dd_matmul(a, b).view(torch.int64),
                        cuda_xf.dd_matmul_seq_torch(a, b).view(torch.int64))
+
+
+def rand_xf(rng, shape, k):
+    limbs = [rng.standard_normal(shape)]
+    for _ in range(1, k):
+        limbs.append(rng.uniform(-0.5, 0.5, shape) * np.spacing(np.abs(limbs[-1])))
+    return torch.from_numpy(np.stack(limbs))
+
+
+def bitwise(a, b):
+    return torch.equal(a.contiguous().view(torch.int64), b.contiguous().view(torch.int64))
+
+
+BUILT_KS = list(range(3, 13))  # the k-limb instantiations (eft.cuh: CLRS_FOR_EACH_K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", BUILT_KS)
+@pytest.mark.parametrize("B,n,K,m", [(1, 6, 6, 11), (10, 1, 1, 1), (2, 40, 70, 33)])
+def test_matmul_xf_kernel_bitwise(cuda, k, B, n, K, m):
+    rng = np.random.default_rng(n + k)
+    a = rand_xf(rng, (B, n, K), k).to(cuda)
+    b = rand_xf(rng, (B, K, m), k).to(cuda)
+    before = cuda_xf.matmul_xf.launches
+    assert bitwise(cuda_xf.matmul_xf(a, b), cuda_xf.matmul_xf_torch(a, b))
+    assert cuda_xf.matmul_xf.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", BUILT_KS)
+def test_schur_pairs_xf_kernel_bitwise(cuda, k):
+    rng = np.random.default_rng(k)
+    a4, b4 = (rand_xf(rng, (2, 3, 4, 11, 11), k).to(cuda) for _ in range(2))
+    hh = rand_xf(rng, (2, 11, 11), k).to(cuda)
+    assert bitwise(cuda_xf.schur_pairs(a4, b4, hh), cuda_xf.schur_pairs_torch(a4, b4, hh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", BUILT_KS)
+def test_spd_inverse_xf_kernel_bitwise(cuda, k):
+    a = spd_batch(np.random.default_rng(k), 3, 9, 1e8)
+    a = torch.cat([a, torch.zeros((3, k - 2, 9, 9), dtype=torch.float64)], dim=1).to(cuda)
+    a[-1, 0, 0, 0] = -1.0  # the last block is indefinite
+    inv_k, ok_k = cuda_xf.spd_inverse_xf(a)
+    inv_p, ok_p = cuda_xf.spd_inverse_xf_torch(a)
+    assert torch.equal(ok_k, ok_p) and not bool(ok_k[-1])
+    good = ok_p.nonzero()[:, 0]
+    assert bitwise(inv_k[good], inv_p[good])
+
+
+@pytest.mark.gpu
+def test_unbuilt_limb_count_raises(cuda):
+    a = torch.zeros((13, 1, 2, 2), dtype=torch.float64, device=cuda)
+    with pytest.raises(NotImplementedError):
+        cuda_xf.matmul_xf(a, a)

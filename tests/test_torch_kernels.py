@@ -1,6 +1,6 @@
-"""The port's kernels K1-K3 (clrs_tpu_torch/ops/cuda_dd.py, cuda_xf.py)
-and the IPM compute kernels that route through them
-(clrs_tpu_torch/core/kernels.py).
+"""The port's kernels K1-K5 (clrs_tpu_torch/ops/cuda_dd.py, cuda_xf.py),
+their k-limb arithmetic (ops/xops.py) and the IPM compute kernels that
+route through them (clrs_tpu_torch/core/kernels.py).
 
 On the CPU each kernel wrapper runs its plain PyTorch version, which is
 held (a) against the Pallas kernel it replaces, run with interpret=True as
@@ -8,7 +8,10 @@ tests/test_pallas_dd.py and tests/test_pallas_xf.py run it, at 2^-48
 relative: interpret mode inlines the kernel into an XLA:CPU program,
 which contracts and reorders the low-limb arithmetic (pallas_dd.py:18-24,
 tests/test_pallas_xf.py:7-17); and (b) against an mpmath oracle at
-double-double accuracy.  The CUDA kernels themselves run only on the card
+double-double accuracy.  At k >= 3 the plain versions are held bit for
+bit against the Pallas kernel bodies replayed with the reference's own
+_XOps, and against interpret mode at a few k-limb ulps.  The CUDA kernels
+themselves run only on the card
 (tests/test_torch_cuda.py and chip_smoke.py), where each must equal its
 plain version bit for bit.
 """
@@ -28,7 +31,7 @@ from clrs_tpu_torch.ops import cuda_dd, cuda_xf
 from clrs_tpu_torch.ops.xfloat import XF as TXF
 
 from test_torch_linalg import spd_dd
-from test_torch_xfloat import assert_bitwise, rand_dd
+from test_torch_xfloat import assert_bitwise, rand_dd, rand_xf
 
 REL_INTERPRET = 2.0 ** -48
 
@@ -198,7 +201,8 @@ def test_matmul_plain_dd_accuracy():
 def test_wrappers_take_plain_version_on_cpu_without_counting():
     rng = np.random.default_rng(8)
     counts = (cuda_dd.dd_spd_inverse.launches, cuda_xf.schur_pairs.launches,
-              cuda_xf.dd_matmul.launches)
+              cuda_xf.dd_matmul.launches, cuda_xf.matmul_xf.launches,
+              cuda_xf.spd_inverse_xf.launches)
     a = np.stack([spd_dd(rng, 4, 10.0)])
     inv, ok = cuda_dd.dd_spd_inverse(t(a))
     inv2, ok2 = cuda_dd.dd_spd_inverse_torch(t(a))
@@ -208,8 +212,14 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     assert torch.equal(cuda_xf.schur_pairs(*args), cuda_xf.schur_pairs_torch(*args))
     x, y = t(rand_dd(rng, (2, 3, 4))), t(rand_dd(rng, (2, 4, 5)))
     assert torch.equal(cuda_xf.dd_matmul(x, y), cuda_xf.dd_matmul_seq_torch(x, y))
+    x, y = t(rand_xf(rng, (2, 3, 4), 3)), t(rand_xf(rng, (2, 4, 5), 3))
+    assert torch.equal(cuda_xf.matmul_xf(x, y), cuda_xf.matmul_xf_torch(x, y))
+    a3 = t(np.concatenate([a, np.zeros((1, 1, 4, 4))], axis=1))
+    assert all(torch.equal(u, v) for u, v in zip(cuda_xf.spd_inverse_xf(a3),
+                                                 cuda_xf.spd_inverse_xf_torch(a3)))
     assert counts == (cuda_dd.dd_spd_inverse.launches, cuda_xf.schur_pairs.launches,
-                      cuda_xf.dd_matmul.launches)
+                      cuda_xf.dd_matmul.launches, cuda_xf.matmul_xf.launches,
+                      cuda_xf.spd_inverse_xf.launches)
 
 
 def test_wrappers_refuse_other_devices():
@@ -218,6 +228,11 @@ def test_wrappers_refuse_other_devices():
         cuda_dd.dd_spd_inverse(meta)
     with pytest.raises(ValueError):
         cuda_xf.dd_matmul(meta[:, 0], meta[:, 0])
+    meta3 = torch.empty((1, 3, 3, 3), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):
+        cuda_xf.spd_inverse_xf(meta3)
+    with pytest.raises(ValueError):
+        cuda_xf.matmul_xf(meta3, meta3)
 
 
 # ---------------------------------------------------------------------------
@@ -299,3 +314,199 @@ def test_mm_kernel_route_matches_pallas_interpret():
     for i in range(3):
         assert_close_dd(np.asarray(want.limbs[:, i]), got.limbs[:, i].numpy(),
                         REL_INTERPRET)
+
+
+# ---------------------------------------------------------------------------
+# k >= 3: the kernels' arithmetic (ops/xops.py) and K2, K4 (+K6), K5
+# ---------------------------------------------------------------------------
+
+KS = (3, 4, 6, 10)
+
+
+def jlist(a):
+    return [jnp.asarray(x) for x in a]
+
+
+def tlist(a):
+    return [t(x) for x in a]
+
+
+def assert_limbs_bitwise(want, got):
+    assert_bitwise(np.stack([np.asarray(x) for x in want]), torch.stack(got))
+
+
+@pytest.mark.parametrize("k", (2,) + KS)
+def test_xops_match_pallas_xops(k, monkeypatch):
+    """ops/xops.py is pallas_xf._XOps op for op, bit for bit (eager JAX,
+    so no XLA fusion); _XOps seeds sqrt with rsqrt, which is patched to
+    the port's correctly rounded 1/sqrt for the comparison."""
+    import jax
+
+    from clrs_tpu.ops.pallas_xf import _XOps
+    from clrs_tpu_torch.ops import xops
+
+    monkeypatch.setattr(jax.lax, "rsqrt", lambda x: 1.0 / jnp.sqrt(x))
+    rng = np.random.default_rng(20 + k)
+    a, b = rand_xf(rng, (3, 6), k), rand_xf(rng, (3, 6), k)
+    p = rand_xf(rng, (3, 6), k, positive=True)
+    p[:, 0, 0] = 0.0
+    xo = _XOps(False, k)
+    assert_limbs_bitwise(xo.add(jlist(a), jlist(b)), xops.add(tlist(a), tlist(b)))
+    assert_limbs_bitwise(xo.mul(jlist(a), jlist(b)), xops.mul(tlist(a), tlist(b)))
+    assert_limbs_bitwise(xo.div(jlist(a), jlist(b)), xops.div(tlist(a), tlist(b)))
+    assert_limbs_bitwise(xo.sqrt(jlist(p)), xops.sqrt(tlist(p)))
+    for axis in (0, 1):
+        assert_limbs_bitwise(xo.sum_axis(jlist(a), axis), xops.sum_axis(tlist(a), axis))
+
+
+@pytest.mark.parametrize("k", KS)
+def test_matmul_and_schur_k_plain_match_xops_replay(k):
+    """The plain K4 and K2 are the Pallas kernel bodies replayed with
+    _XOps, bit for bit: K4 accumulates add(acc, mul(a[:, r], b[r, :])) over
+    the contraction zero-padded to 8 (pallas_xf.py:489-493, 514-518), K2
+    forms ((p1 + p2) + (p3 + p4)) * HH (pallas_xf.py:605-614)."""
+    from clrs_tpu.ops.pallas_xf import _XOps
+
+    rng = np.random.default_rng(30 + k)
+    xo = _XOps(False, k)
+    a, b = rand_xf(rng, (2, 3, 5), k), rand_xf(rng, (2, 5, 4), k)
+    ap = np.pad(a, ((0, 0),) * 3 + ((0, 3),))
+    bp = np.pad(b, ((0, 0),) * 2 + ((0, 3), (0, 0)))
+    acc = xo.zeros_like(jnp.zeros((2, 3, 4)))
+    for r in range(8):
+        acc = xo.add(acc, xo.mul(jlist(ap[:, :, :, r:r + 1]), jlist(bp[:, :, r:r + 1, :])))
+    assert_limbs_bitwise(acc, list(cuda_xf.matmul_xf_torch(t(a), t(b))))
+    a4, b4 = rand_xf(rng, (2, 3, 4, 5, 5), k), rand_xf(rng, (2, 3, 4, 5, 5), k)
+    hh = rand_xf(rng, (2, 5, 5), k, positive=True)
+    p = [xo.mul(jlist(a4[:, :, :, i]), jlist(b4[:, :, :, i])) for i in range(4)]
+    w = xo.mul(xo.add(xo.add(p[0], p[1]), xo.add(p[2], p[3])), jlist(hh[:, :, None]))
+    assert_limbs_bitwise(w, list(cuda_xf.schur_pairs_torch(t(a4), t(b4), t(hh))))
+
+
+def assert_close_xf(want, got, tol):
+    """(k, ...) limb arrays represent values within tol of each other,
+    relative to the largest leading limb (sums in mpmath)."""
+    w = np.asarray(want, np.float64)
+    g = np.asarray(got, np.float64)
+    scale = float(np.max(np.abs(w[0]))) or 1.0
+    old = mpmath.mp.prec
+    mpmath.mp.prec = 60 * w.shape[0] + 60
+    try:
+        for idx in np.ndindex(w.shape[1:]):
+            d = mpmath.fsum(mpmath.mpf(float(x)) for x in w[(slice(None),) + idx]) \
+                - mpmath.fsum(mpmath.mpf(float(x)) for x in g[(slice(None),) + idx])
+            assert abs(d) <= tol * scale, (idx, float(abs(d) / scale), tol)
+    finally:
+        mpmath.mp.prec = old
+
+
+def k_ulp(k):
+    """A few ulps of a k-limb expansion (53k bits, 2^10 of slack)."""
+    return 2.0 ** (10 - 53 * k)
+
+
+@pytest.mark.parametrize("k", [3])
+def test_mm_k_route_matches_pallas_interpret(k):
+    """_mm's kernel route at k >= 3 (K4's plain version) against
+    xf_matmul_pallas in interpret mode, on one grid step: in interpret
+    mode the Pallas kernels' unrolled k < 6 bodies lose low limbs once the
+    grid takes more steps (ROADMAP.md, reference quirks); the K6 test
+    below takes the k >= 6 loop_kc body over several steps.  Interpret
+    mode inlines the kernel into XLA:CPU, which reorders the low-limb
+    arithmetic: k-limb ulps."""
+    from clrs_tpu.ops.pallas_xf import xf_matmul_pallas
+
+    rng = np.random.default_rng(40 + k)
+    a, b = rand_xf(rng, (1, 6, 6), k), rand_xf(rng, (1, 6, 11), k)
+    want = xf_matmul_pallas(jxf(a), jxf(b), interpret=True)
+    got = tk._mm(txf(a), txf(b), use_cuda=True)
+    assert_close_xf(want.limbs, got.limbs.numpy(), k_ulp(k))
+
+
+def test_matmul_k_tiled_plain_matches_pallas_interpret():
+    """K6 (the tiled K4) in interpret mode with 8x8 output tiles, a
+    ragged edge and two contraction steps: the same per-entry sequence as
+    K4's plain version (k=6, the Pallas kernel's loop_kc body)."""
+    from clrs_tpu.ops.pallas_xf import _matmul_batched_k_tiled
+
+    k = 6
+    rng = np.random.default_rng(50)
+    a, b = rand_xf(rng, (1, 9, 11), k), rand_xf(rng, (1, 11, 10), k)
+    want = _matmul_batched_k_tiled(jnp.asarray(a), jnp.asarray(b), interpret=True,
+                                   bn=8, bm=8)
+    assert_close_xf(want, cuda_xf.matmul_xf_torch(t(a), t(b)).numpy(), k_ulp(k))
+
+
+@pytest.mark.parametrize("k", [3])
+def test_schur_block_contribution_k_route_matches_pallas_interpret(k):
+    """The K2-routed Schur block at k (gather, plain K2, segment-sum)
+    against the reference's Pallas-routed block in interpret mode."""
+    rng = np.random.default_rng(60 + k)
+    m, delta, K, rmax = 2, 3, 3, 2
+    Z, V, H = cluster_inputs(rng, m, delta, K, rmax)
+    Y, _, _ = cluster_inputs(rng, m, delta, K, rmax)
+    lift = np.zeros((k - 2,) + Z.shape[1:])
+    Z, Y = (np.concatenate([x, lift]) for x in (Z, Y))
+    V = np.concatenate([V, np.zeros((k - 2,) + V.shape[1:])])
+    H = np.concatenate([H, np.zeros((k - 2,) + H.shape[1:])])
+    PX = tk.compute_pairings(txf(Z), txf(V), m)
+    PY = tk.compute_pairings(txf(Y), txf(V), m)
+    routed = tk.schur_block_contribution(PX, PY, txf(H), m, K, rmax, use_cuda=True)
+    jPX, jPY = (JXF(jnp.asarray(P.limbs[:, 0].numpy())) for P in (PX, PY))
+    jH = jxf(H[:, 0])
+    HH = jxf(np.asarray(jk.xf_mul(JXF(jH.limbs[:, :, None]), JXF(jH.limbs[:, None, :])).limbs)
+             * 0.25)
+    want = jk._schur_block_contribution_pallas(jPX, jPY, HH, m, K, rmax, interpret=True)
+    assert_close_xf(want.limbs, routed.limbs[:, 0].numpy(), k_ulp(k))
+
+
+def spd_xf(rng, B, n, k, cond):
+    """(B, k, n, n) symmetric positive definite blocks with k normalized
+    limbs."""
+    out = np.zeros((B, k, n, n))
+    for i in range(B):
+        out[i, :2] = spd_dd(rng, n, cond)
+        for q in range(2, k):
+            lo = rng.uniform(-0.5, 0.5, (n, n)) * np.spacing(np.abs(out[i, q - 1]))
+            out[i, q] = (lo + lo.T) / 2
+    return out
+
+
+def test_spd_inverse_k_plain_matches_pallas_interpret():
+    """K5's plain version at k=3 against the Pallas kernel in interpret
+    mode, flags included (one block indefinite).  Besides the interpret
+    reordering, the Pallas sqrt seeds with rsqrt: k-limb ulps times the
+    condition number."""
+    from clrs_tpu.ops.pallas_xf import xf_spd_inverse_pallas_k
+
+    k, cond = 3, 1e6
+    rng = np.random.default_rng(70)
+    limbs = spd_xf(rng, 2, 3, k, cond)
+    limbs[1, 0, 2, 2] = -50.0
+    inv_p, ok_p = xf_spd_inverse_pallas_k(jnp.asarray(limbs), interpret=True)
+    inv_t, ok_t = cuda_xf.spd_inverse_xf_torch(t(limbs))
+    assert np.asarray(ok_p).tolist() == ok_t.tolist() == [True, False]
+    assert_close_xf(np.asarray(inv_p[0]), inv_t[0].numpy(), cond * k_ulp(k))
+
+
+@pytest.mark.parametrize("k", KS)
+def test_spd_inverse_k_plain_accuracy(k):
+    """A @ inv(A) = I to cond * (k-limb ulps) in exact (mpmath) arithmetic."""
+    n, cond = 4, 1e4
+    rng = np.random.default_rng(80 + k)
+    a = spd_xf(rng, 1, n, k, cond)
+    inv, ok = cuda_xf.spd_inverse_xf_torch(t(a))
+    assert bool(ok[0])
+    inv = inv[0].numpy()
+    old = mpmath.mp.prec
+    mpmath.mp.prec = 60 * k + 60
+
+    def val(x, i, j):
+        return mpmath.fsum(mpmath.mpf(float(v)) for v in x[:, i, j])
+
+    try:
+        worst = max(abs(mpmath.fsum(val(a[0], i, q) * val(inv, q, j) for q in range(n))
+                        - (1 if i == j else 0)) for i in range(n) for j in range(n))
+        assert worst < cond * k_ulp(k), worst
+    finally:
+        mpmath.mp.prec = old

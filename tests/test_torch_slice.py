@@ -20,6 +20,7 @@ import os
 import subprocess
 import sys
 
+import mpmath
 import numpy as np
 import pytest
 import torch
@@ -104,7 +105,7 @@ def test_packing_and_interop_limb_for_limb():
 
 def test_slice_history_matches_reference(reference_run):
     _, jres = reference_run
-    bound, tres = t_bound(N, D, use_cuda_matmul=False, **SOLVE)
+    bound, tres = t_bound(N, D, use_cuda_matmul=False, device=CPU, **SOLVE)
     assert tres.status == jres.status
     assert tres.iterations == jres.iterations
     assert_history_close(jres.history, tres.history, 1e-12)
@@ -113,7 +114,46 @@ def test_slice_history_matches_reference(reference_run):
 
 def test_slice_kernel_route_matches_reference(reference_run):
     _, jres = reference_run
-    bound, tres = t_bound(N, D, use_cuda_matmul=True, **SOLVE)
+    bound, tres = t_bound(N, D, use_cuda_matmul=True, device=CPU, **SOLVE)
     assert tres.status == jres.status
     assert_history_close(jres.history, tres.history, 1e-8)
     assert abs(bound - 240.0) < 1e-3
+
+
+@pytest.mark.parametrize("prec", [53, 256])
+def test_packing_k3_limb_for_limb(prec):
+    """Packing at k=3 matches the reference limb for limb.  Both pack at
+    the ambient mpmath precision: the front-end restores mp.prec before
+    the solver packs (clrs_tpu/apps/delsarte.py:36-71), so at the default
+    53 bits the preconditioned data are 53-bit numbers and limbs 1 and 2 of
+    b are zero, as in the reference; at 256 bits they are not."""
+    j_cons, j_b, j_info = j_build(N, D)
+    t_cons, t_b, t_info = t_build(N, D)
+    old = mpmath.mp.prec
+    mpmath.mp.prec = prec
+    try:
+        jp = j_pack(j_cons, j_b, info=j_info, k=3, dtype=np.float64)
+        tp = t_pack(t_cons, t_b, info=t_info, k=3, device=CPU)
+    finally:
+        mpmath.mp.prec = old
+    for cj, ct in zip(jp.clusters, tp.clusters):
+        for x, y in zip(cj.Vs + cj.Hs + (cj.B, cj.c), ct.Vs + ct.Hs + (ct.B, ct.c)):
+            assert_bitwise(x, y)
+    for name in ("b", "b0", "x_sigma", "y_R_inv", "y_R"):
+        assert_bitwise(getattr(jp, name), getattr(tp, name))
+    assert tp.b.k == 3
+    assert bool(torch.any(tp.b.limbs[1:] != 0)) == (prec > 53)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without device=, solverank1sdp packs onto the CUDA card and
+    delsarte_lp_bound solves there; on a machine without one both raise
+    instead of running on the CPU."""
+    from clrs_tpu_torch import solverank1sdp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cons, b, info = t_build(N, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solverank1sdp(cons, b, info, verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_bound(N, 1, verbose=False)

@@ -1,8 +1,9 @@
-"""The port's double-double arithmetic (clrs_tpu_torch/ops/xfloat.py)
-against the JAX reference (clrs_tpu/ops/xfloat.py), both on the CPU in
-float64: the port performs the reference's operations in the reference's
-order, so the limbs must be BITWISE equal.  Inputs are made with numpy
-from a seed and handed to both."""
+"""The port's k-limb arithmetic (clrs_tpu_torch/ops/xfloat.py) against
+the JAX reference (clrs_tpu/ops/xfloat.py), both on the CPU in float64:
+the port performs the reference's operations in the reference's order, so
+the limbs must be BITWISE equal, at k=2 (double-double) and at the
+ladder's k = 3, 4, 6, 10 (triple-word, quad-word and cascade sequences).
+Inputs are made with numpy from a seed and handed to both."""
 
 import jax.numpy as jnp
 import mpmath
@@ -16,13 +17,34 @@ from clrs_tpu_torch.ops import xfloat as tx
 CPU = torch.device("cpu")
 
 
+def rand_xf(rng, shape, k, scale=1.0, positive=False):
+    """Normalized k-limb expansions (k, *shape): each limb at most half an
+    ulp of the one above it."""
+    limbs = [rng.standard_normal(shape) * scale]
+    if positive:
+        limbs[0] = np.abs(limbs[0]) + 0.1 * scale
+    for _ in range(1, k):
+        limbs.append(rng.uniform(-0.5, 0.5, shape) * np.spacing(np.abs(limbs[-1])))
+    return np.stack(limbs)
+
+
 def rand_dd(rng, shape, scale=1.0, positive=False):
     """Normalized double-double limbs (2, *shape): |lo| <= ulp(hi)/2."""
-    hi = rng.standard_normal(shape) * scale
-    if positive:
-        hi = np.abs(hi) + 0.1 * scale
-    lo = rng.uniform(-0.5, 0.5, shape) * np.spacing(np.abs(hi))
-    return np.stack([hi, lo])
+    return rand_xf(rng, shape, 2, scale, positive)
+
+
+KS = (3, 4, 6, 10)  # the precision ladder's limb counts above k=2
+
+
+def with_k(cases, ids, at_k):
+    """Parametrize cases at k=2 under their own ids, and the cases whose
+    ids at_k(k, id) accepts again at every k of KS, the id prefixed by k
+    (eager JAX takes seconds for one k=10 division, so the higher k run a
+    subset)."""
+    params = [pytest.param(2, *c, id=i) for c, i in zip(cases, ids)]
+    params += [pytest.param(k, *c, id=f"k{k}-{i}") for k in KS
+               for c, i in zip(cases, ids) if at_k(k, i)]
+    return params
 
 
 def both(limbs):
@@ -50,12 +72,16 @@ BINARY = {
 }
 
 
-@pytest.mark.parametrize("op", sorted(BINARY))
-@pytest.mark.parametrize("scale", [1e-8, 1.0, 1e12])
-def test_binary_bitwise(op, scale):
+_BINARY_CASES = [(scale, op) for scale in (1e-8, 1.0, 1e12) for op in sorted(BINARY)]
+
+
+@pytest.mark.parametrize("k,scale,op", with_k(
+    _BINARY_CASES, [f"{s}-{o}" for s, o in _BINARY_CASES],
+    lambda k, i: i in ("1.0-add", "1.0-mul", "1.0-div")))
+def test_binary_bitwise(k, scale, op):
     rng = np.random.default_rng(0)
-    a = rand_dd(rng, (4, 7), scale)
-    b = rand_dd(rng, (4, 7), 1.0)
+    a = rand_xf(rng, (4, 7), k, scale)
+    b = rand_xf(rng, (4, 7), k, 1.0)
     ja, ta = both(a)
     jb, tb = both(b)
     fj, ft = BINARY[op]
@@ -80,10 +106,12 @@ def test_operators_and_cancellation_bitwise():
     assert_bitwise(ja >= 0.25, ta >= 0.25)
 
 
-@pytest.mark.parametrize("scale", [1e-100, 1e-6, 1.0, 1e100])
-def test_sqrt_reciprocal_bitwise(scale):
+@pytest.mark.parametrize("k,scale", with_k(
+    [(s,) for s in (1e-100, 1e-6, 1.0, 1e100)], ["1e-100", "1e-06", "1.0", "1e+100"],
+    lambda k, i: i == "1.0"))
+def test_sqrt_reciprocal_bitwise(k, scale):
     rng = np.random.default_rng(2)
-    a = rand_dd(rng, (3, 5), scale, positive=True)
+    a = rand_xf(rng, (3, 5), k, scale, positive=True)
     a[:, 0, 0] = 0.0  # sqrt(0) = 0
     ja, ta = both(a)
     assert_bitwise(jx.xf_sqrt(ja), tx.xf_sqrt(ta))
@@ -116,10 +144,12 @@ def test_pow2_ldexp_bitwise():
                    tx.xf_ldexp(ta, torch.tensor(shifts)))
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 7, 11, 16])
-def test_sum_odd_fold_tree_bitwise(n):
+@pytest.mark.parametrize("k,n", with_k(
+    [(n,) for n in (1, 2, 3, 7, 11, 16)], ["1", "2", "3", "7", "11", "16"],
+    lambda k, i: i == {3: "7", 4: "11", 6: "3", 10: "2"}[k]))
+def test_sum_odd_fold_tree_bitwise(k, n):
     rng = np.random.default_rng(5)
-    a = rand_dd(rng, (3, n, 2))
+    a = rand_xf(rng, (3, n, 2), k)
     ja, ta = both(a)
     for axis in (0, 1, -1):
         assert_bitwise(jx.xf_sum(ja, axis=axis), tx.xf_sum(ta, axis=axis))
@@ -136,12 +166,18 @@ def test_dot_norm_max_bitwise():
     assert_bitwise(jx.xf_norm_max(ja), tx.xf_norm_max(ta))
 
 
-@pytest.mark.parametrize("shapes", [((5, 7), (7, 3)), ((1, 1), (1, 1)),
-                                    ((2, 6, 11), (2, 11, 6)), ((3, 4, 5), (5, 2))])
-def test_matmul_product_tree_bitwise(shapes):
+_MATMUL_SHAPES = [((5, 7), (7, 3)), ((1, 1), (1, 1)), ((2, 6, 11), (2, 11, 6)),
+                  ((3, 4, 5), (5, 2))]
+
+
+@pytest.mark.parametrize("k,shapes", [
+    pytest.param(2, s, id=f"shapes{i}") for i, s in enumerate(_MATMUL_SHAPES)]
+    + [pytest.param(k, _MATMUL_SHAPES[i], id=f"k{k}-shapes{i}")
+       for k, i in zip(KS, (0, 2, 3, 0))])
+def test_matmul_product_tree_bitwise(k, shapes):
     rng = np.random.default_rng(7)
-    ja, ta = both(rand_dd(rng, shapes[0]))
-    jb, tb = both(rand_dd(rng, shapes[1]))
+    ja, ta = both(rand_xf(rng, shapes[0], k))
+    jb, tb = both(rand_xf(rng, shapes[1], k))
     assert_bitwise(jx.xf_matmul(ja, jb), tx.xf_matmul(ta, tb))
 
 
@@ -156,31 +192,48 @@ def test_vec_sum_renorm_bitwise():
         assert_bitwise(a, b)
 
 
-def test_from_to_mp_roundtrip_bitwise():
+@pytest.mark.parametrize("k", [pytest.param(2, id="k2")] + [
+    pytest.param(k, id=f"k{k}") for k in KS])
+def test_from_to_mp_roundtrip_bitwise(k):
     old = mpmath.mp.prec
-    mpmath.mp.prec = 256
+    mpmath.mp.prec = max(256, 60 * k)
     try:
         vals = np.array([[mpmath.mpf(1) / 3, -mpmath.pi, mpmath.mpf(0)],
                          [mpmath.sqrt(2) * 1e-200, mpmath.e * 1e250,
                           mpmath.mpf("1e-320")]], dtype=object)
-        j = jx.xf_from_mp(vals, k=2)
-        t = tx.xf_from_mp(vals, k=2, device=CPU)
+        j = jx.xf_from_mp(vals, k=k)
+        t = tx.xf_from_mp(vals, k=k, device=CPU)
         assert_bitwise(j, t)
         back_j = jx.xf_to_mp(j)
         back_t = tx.xf_to_mp(t)
         for a, b in zip(back_j.reshape(-1), back_t.reshape(-1)):
             assert a == b
-        # dd carries ~106 bits of the 256-bit values
+        # k limbs carry ~53k - 2 bits of the values
         rel = abs(back_t[0, 0] - vals[0, 0]) / vals[0, 0]
-        assert rel < mpmath.mpf(2) ** -104
+        assert rel < mpmath.mpf(2) ** (2 - 53 * k)
     finally:
         mpmath.mp.prec = old
 
 
+@pytest.mark.parametrize("ka,kb", [(2, 3), (6, 4), (3, 10)])
+def test_mixed_limb_counts_bitwise(ka, kb):
+    """Mixed k: add pads the shorter operand with zeros, mul runs the
+    cascade on the unequal limb lists (xfloat.py:762-769, 1011-1014)."""
+    rng = np.random.default_rng(9)
+    ja, ta = both(rand_xf(rng, (3, 4), ka))
+    jb, tb = both(rand_xf(rng, (3, 4), kb))
+    assert_bitwise(jx.xf_add(ja, jb), tx.xf_add(ta, tb))
+    assert_bitwise(jx.xf_mul(ja, jb), tx.xf_mul(ta, tb))
+
+
 def test_other_limb_counts_raise():
-    a = tx.XF(torch.zeros((3, 2), dtype=torch.float64))
-    with pytest.raises(NotImplementedError):
+    """k = 13 and up run through the reference's _loop_* kernels, which
+    are not ported: the port raises rather than compute otherwise."""
+    a = tx.XF(torch.zeros((13, 2), dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="_loop_"):
         tx.xf_add(a, a)
+    with pytest.raises(NotImplementedError):
+        tx.xf_mul(a, a)
     with pytest.raises(NotImplementedError):
         tx.xf_sqrt(a)
 
