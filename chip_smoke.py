@@ -10,12 +10,15 @@ Phases (any failure raises, and the script exits non-zero):
      source, all at once) and prints the build seconds and ptxas's
      registers and spills of the k-limb kernels at k=3 and k=10;
   3. runs each kernel (K1 SPD inverse, K2 Schur pairs at k=2 and k,
-     K3 matmul, K4 k-limb matmul, K5 k-limb SPD inverse) against its plain
-     PyTorch version on the card, at every Delsarte config-1 shape of the
-     main path, K2, K4 and K5 at k = 3, 4, 6, 10, and at wide shapes:
-     limbs and flags must be bitwise equal; prints median times of kernel
-     and plain version and each call's bound (bytes over 3.35 TB/s or
-     FP64 operations over 34 TFLOP/s, the larger);
+     K3 matmul, K4 k-limb matmul, K5 k-limb SPD inverse, K7 step-length
+     sandwich, K8 elementwise k-limb add and multiply, K9 batch-minor dd
+     SPD inverse) against its plain PyTorch version on the card, at every
+     Delsarte config-1 shape of the main path, K2, K4 and K5 at k = 3, 4,
+     6, 10, K7 at k = 2, 3, 4, 6, 10, K8 at every k = 2..12 (and at k >= 5
+     against xfloat's own add and multiply), K9 also against K1, and at
+     wide shapes: limbs and flags must be bitwise equal; prints median
+     times of kernel and plain version and each call's bound (bytes over
+     3.35 TB/s or FP64 operations over 34 TFLOP/s, the larger);
   4. solves the Delsarte kissing-number bound in dimension 8 at 2d=10 on
      the card at k=2 with every launch counter reset first: K1, K2 and K3
      must have launched, the bound must be 240 to 1e-9, and the run must
@@ -31,7 +34,14 @@ Phases (any failure raises, and the script exits non-zero):
   6. solves the dimension-24 bound (2d=20, k=2) on the card, counters
      reset: K1, K2 and K3 must have launched, and the bound is 196560 to
      1e-3;
-  7. prints the kernels' JSON line, then the result line
+  7. solves config 1 at k=3 on the all-kernels route (use_cuda_inverse,
+     use_cuda_steplength, use_cuda_elemwise), counters reset: K2, K4, K5,
+     K7 (4 per iteration) and K8 must have launched and K1, K3 and K9 must
+     not; the run must follow the CPU port on the same route as in phase 5
+     and end `optimal` with the bound 240 to 1e-12 within 2 iterations of
+     phase 5; prints both routes' steady it/s and ms/iter by phase side by
+     side;
+  8. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} as the last line.
 The full record also goes to chiprun_out/chip_smoke.json.
 """
@@ -61,7 +71,22 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                            "clrs_tpu/ops/pallas_xf.py:443"),
     "spd_inverse_xf": ("clrs_tpu_torch/csrc/spd_inverse_xf.cu",
                        "clrs_tpu/ops/pallas_xf.py:730"),
+    "steplen_xf": ("clrs_tpu_torch/csrc/steplen_xf.cu", "clrs_tpu/ops/pallas_xf.py:887"),
+    "elemwise_xf": ("clrs_tpu_torch/csrc/elemwise_xf.cu",
+                    "clrs_tpu/ops/pallas_xf.py:1157"),
+    "spd_inverse_dd_wide": ("clrs_tpu_torch/csrc/spd_inverse_dd_wide.cu",
+                            "clrs_tpu/ops/pallas_dd.py:337"),
 }
+# the solve whose launches each kernel's JSON entry reports, and the limb
+# count of its first main-path shape there; K9 is an entry point that no
+# solver route calls, so its solve count is phase 4's zero
+KERNEL_PATH = {"spd_inverse_dd": (2, 2), "schur_pairs_dd": (2, 2), "matmul_dd": (2, 2),
+               "schur_pairs_xf": (3, 3), "matmul_xf (K4, K6)": (3, 3),
+               "spd_inverse_xf": (3, 3), "steplen_xf": ("all", 3),
+               "elemwise_xf": ("all", 3), "spd_inverse_dd_wide": (2, 2)}
+STEPLEN_LADDER = (2, 3, 4, 6, 10)
+ALL_KERNELS_ROUTE = dict(use_cuda_inverse=True, use_cuda_steplength=True,
+                         use_cuda_elemwise=True)
 LADDER = (3, 4, 6, 10)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP64_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores
@@ -127,14 +152,36 @@ def schur_work(k, G, P2, T):
             G * P2 * T * T * (5 * c["mul"] + 3 * c["add"]))
 
 
-def spd_inverse_work(k, B, n):
+def _chol_solve_ops(k, n):
+    """Operations of the Cholesky and one forward substitution of n rows
+    (K5, K7), each matvec through the halving tree."""
     c = op_counts(k)
     np2 = 1 << max(n - 1, 0).bit_length()
     matvec = n * c["mul"] + (np2 - 1) * c["add"] + k + c["add"]
     chol = n * (n * matvec + c["sqrt"] + n * c["div"])
     solve = n * n * (matvec + c["div"])
+    return chol, solve, matvec
+
+
+def spd_inverse_work(k, B, n):
+    c = op_counts(k)
+    chol, solve, _ = _chol_solve_ops(k, n)
     wtw = n * n * n * (c["mul"] + c["add"])
     return 8 * B * (2 * k * n * n + n), B * (chol + solve + wtw)
+
+
+def steplen_work(k, B, n):
+    """K7: K5's Cholesky and row solve, then a column solve of n^2 entries
+    (a matvec and a div each, the masks n^2 k products) and the plain
+    output add; reads M and dM, writes W and the flags."""
+    c = op_counts(k)
+    chol, solve, matvec = _chol_solve_ops(k, n)
+    cols = n * n * (matvec + c["div"] + n * k) + n * n
+    return 8 * B * (2 * k * n * n + n * n + n), B * (chol + solve + cols)
+
+
+def elemwise_work(k, N, op):
+    return 3 * k * 8 * N, N * op_counts(k)[op]
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +241,8 @@ MATMUL_SHAPES = (("(6,6)x(6,11)", (1, 6, 6, 11)), ("(11,6)x(6,11)", (1, 11, 6, 1
 SCHUR_SHAPES = (("config1 G=1 P2=1 T=11", (1, 1, 11)), ("signs G=10 P2=1 T=1", (10, 1, 1)))
 INVERSE_SHAPES = (("S_j 1x11x11", (1, 11, 1e8)), ("Q 1x10x10", (1, 10, 1e6)),
                   ("signs 10x1x1", (10, 1, 1.0)))
+ELEMWISE_SHAPES = (("()", ()), ("(11,)", (11,)), ("(6,6)", (6, 6)), ("(10,1,1)", (10, 1, 1)),
+                   ("(11,11)", (11, 11)), ("wide 2^20", (1 << 20,)))
 
 
 def check_kernels(dev, record):
@@ -286,6 +335,66 @@ def check_kernels(dev, record):
     row = case("spd_inverse_xf", 3, "wide 64x32x32 (1 indefinite)", cuda_xf.spd_inverse_xf,
                cuda_xf.spd_inverse_xf_torch, (a,), spd_inverse_work(3, 64, 32), 5, 1, False)
     assert row["flags"][5] is False, "K5: the indefinite block was not flagged"
+
+    # K7 on the config-1 step-length groups (M SPD, dM symmetric indefinite)
+    # at the ladder's k, and wide at k=3 with one indefinite M
+    def sandwich_inputs(B, n, k, cond):
+        m = spd_batch(rng, B, n, k, cond, dev)
+        d = rand_xf(rng, (B, n, n), k, dev).transpose(0, 1)
+        return m, (d + d.transpose(-1, -2)) / 2
+
+    for k in STEPLEN_LADDER:
+        for label, (B, n) in (("1x6x6", (1, 6)), ("1x5x5", (1, 5))):
+            case("steplen_xf", k, label, cuda_xf.steplen_sandwich_xf,
+                 cuda_xf.steplen_sandwich_xf_torch, sandwich_inputs(B, n, k, 1e6),
+                 steplen_work(k, B, n), 20, 1, True)
+    m, d = sandwich_inputs(64, 32, 3, 1e10)
+    m[5, 0, 4, 4] = -1e3
+    row = case("steplen_xf", 3, "wide 64x32x32 (1 indefinite)", cuda_xf.steplen_sandwich_xf,
+               cuda_xf.steplen_sandwich_xf_torch, (m, d), steplen_work(3, 64, 32), 5, 1,
+               False)
+    assert row["flags"][5] is False, "K7: the indefinite block was not flagged"
+
+    # K8 at every k, add and multiply, at the solver's shapes and wide; at
+    # k >= 5 (equal-k operands) it computes xfloat's own sequences
+    from clrs_tpu_torch.ops.xfloat import XF, xf_add, xf_mul
+
+    for k in range(2, 13):
+        for label, shape in ELEMWISE_SHAPES:
+            main = not label.startswith("wide")
+            a, b = rand_xf(rng, shape, k, dev), rand_xf(rng, shape, k, dev)
+            a2, b2 = a.reshape(k, -1), b.reshape(k, -1)
+            for op, xf_op in (("add", xf_add), ("mul", xf_mul)):
+                row = case("elemwise_xf", k, f"{op} {label}",
+                           lambda x, y, op=op: cuda_xf.elemwise_xf(op, x, y),
+                           lambda x, y, op=op: cuda_xf.elemwise_xf_torch(op, x, y),
+                           (a2, b2), elemwise_work(k, a2.shape[1], op), 50 if main else 10,
+                           3 if main and k < 6 else 1, main)
+                if k >= 5:
+                    got = cuda_xf.elemwise_xf(op, a2, b2).reshape(a.shape)
+                    assert bits_equal(got, xf_op(XF(a), XF(b)).limbs), \
+                        f"elemwise_xf k={k} {op} {label}: not xfloat's result"
+                    row["equals_xfloat"] = True
+
+    # K9 at the config-1 inverse shapes and wide, against its plain version
+    # and against K1
+    for label, (B, n, cond) in (("signs 10x1x1", (10, 1, 1.0)),
+                                ("S_j 1x11x11", (1, 11, 1e8)),
+                                ("wide 256x64x64 (1 indefinite)", (256, 64, 1e10))):
+        main = not label.startswith("wide")
+        a = spd_batch(rng, B, n, 2, cond, dev)
+        if not main:
+            a[7, 0, 5, 5] = -1e3
+        row = case("spd_inverse_dd_wide", 2, label, cuda_dd.dd_spd_inverse_wide,
+                   cuda_dd.dd_spd_inverse_wide_torch, (a,), spd_inverse_work(2, B, n),
+                   50 if main else 5, 3 if main else 1, main)
+        inv_w, ok_w = cuda_dd.dd_spd_inverse_wide(a)
+        inv_1, ok_1 = cuda_dd.dd_spd_inverse(a)
+        assert torch.equal(ok_w, ok_1) and bits_equal(inv_w[ok_w], inv_1[ok_1]), \
+            f"spd_inverse_dd_wide {label}: not K1's result"
+        row["equals_K1"] = True
+        if not main:
+            assert row["flags"][7] is False, "K9: the indefinite block was not flagged"
     record["kernel_checks"] = rows
     return rows
 
@@ -300,7 +409,9 @@ def counters():
 
     return {"spd_inverse_dd": cuda_dd.dd_spd_inverse, "schur_pairs": cuda_xf.schur_pairs,
             "matmul_dd": cuda_xf.dd_matmul, "matmul_xf": cuda_xf.matmul_xf,
-            "spd_inverse_xf": cuda_xf.spd_inverse_xf}
+            "spd_inverse_xf": cuda_xf.spd_inverse_xf,
+            "steplen_xf": cuda_xf.steplen_sandwich_xf, "elemwise_xf": cuda_xf.elemwise_xf,
+            "spd_inverse_dd_wide": cuda_dd.dd_spd_inverse_wide}
 
 
 def reset_counters():
@@ -317,30 +428,33 @@ def per_phase_ms(res):
     return {k: 1e3 * v / n for k, v in sorted(res.timings.items())}
 
 
-def cpu_solve(n, d, k):
+def solve(n, d, k, device, route):
+    """delsarte_lp_bound on device with the route's solver options."""
+    from clrs_tpu_torch import delsarte_lp_bound
+
+    return delsarte_lp_bound(n, d, precision_k=k, device=device, **route, **SOLVE)
+
+
+def cpu_solve(n, d, k, route=None):
     """The CPU port on the card's route (the kernels' plain versions); run
     in a worker process while the card works."""
     torch.set_num_threads(2)
-    from clrs_tpu_torch import delsarte_lp_bound
-
     t0 = time.time()
-    bound_, res = delsarte_lp_bound(n, d, precision_k=k, device="cpu",
-                                    use_cuda_matmul=True, **SOLVE)
+    bound_, res = solve(n, d, k, "cpu", dict(route or {}, use_cuda_matmul=True))
     return dict(bound=bound_, status=res.status, iterations=res.iterations,
                 history=res.history, wall_s=time.time() - t0)
 
 
-def solve_config1(dev, record, k, cpu_future, floor, bound_tol, expect_status, kernels):
+def solve_config1(dev, record, k, cpu_future, floor, bound_tol, expect_status, kernels,
+                  route=None, tag=None):
     """Delsarte dim 8, 2d=10 at k limbs on the card, held against the CPU."""
-    from clrs_tpu_torch import delsarte_lp_bound
-
     reset_counters()
     t0 = time.time()
-    bound_, res = delsarte_lp_bound(8, 5, precision_k=k, device=dev, **SOLVE)
+    bound_, res = solve(8, 5, k, dev, route or {})
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counters()
-    tag = f"config1 k={k}"
+    tag = tag or f"config1 k={k}"
     log(f"{tag} gpu: bound {bound_!r} status {res.status} iterations {res.iterations} "
         f"wall {wall:.3f} s ({res.iterations / wall:.4f} it/s, set-up included)")
     it_s = (res.iterations - 2) / max(sum(res.timings.values()), 1e-12)
@@ -373,7 +487,7 @@ def solve_config1(dev, record, k, cpu_future, floor, bound_tol, expect_status, k
         f"{len(rel_by_iter)} iterations, first above 1e-10 at iteration {parted}; "
         f"{pre_floor!r} over the {floor_at} iterations held "
         f"({'the whole history' if floor is None else f'before the {floor:g} error floor'})")
-    record[f"config1_k{k}"] = dict(
+    record[tag.replace(" ", "_").replace("=", "")] = dict(
         bound=bound_, status=res.status, iterations=res.iterations, wall_s=wall,
         steady_it_per_s=it_s, phase_ms_per_iter=phases, launches=launches,
         bound_cpu=cpu["bound"], status_cpu=cpu["status"], iterations_cpu=cpu["iterations"],
@@ -392,6 +506,33 @@ def solve_config1(dev, record, k, cpu_future, floor, bound_tol, expect_status, k
     assert abs(res.iterations - cpu["iterations"]) <= 2, (res.iterations, cpu["iterations"])
     assert floor_at >= 1, "no iteration before the error floor to compare"
     assert pre_floor <= 1e-10, f"gpu and cpu histories differ by {pre_floor!r}"
+    return launches, res
+
+
+def solve_all_kernels(dev, record, cpu_future, default):
+    """Phase 7: config 1 at k=3 on the all-kernels route, against the CPU
+    on the same route and against phase 5's default route."""
+    launches, res = solve_config1(
+        dev, record, 3, cpu_future, None, 1e-12, "optimal",
+        ("schur_pairs", "matmul_xf", "spd_inverse_xf", "steplen_xf", "elemwise_xf"),
+        route=ALL_KERNELS_ROUTE, tag="config1 k=3 all-kernels")
+    # two block-size groups (6x6, 5x5) for X and for Y in every iteration
+    assert launches["steplen_xf"] == 4 * res.iterations, launches["steplen_xf"]
+    assert abs(res.iterations - default.iterations) <= 2, (res.iterations, default.iterations)
+    assert default.status == "optimal"
+    steady = {}
+    for name, r in (("default", default), ("all-kernels", res)):
+        steady[name] = (r.iterations - 2) / max(sum(r.timings.values()), 1e-12)
+    log(f"config1 k=3 routes, steady it/s: default {steady['default']:.4f}, "
+        f"all-kernels {steady['all-kernels']:.4f}; iterations {default.iterations} / "
+        f"{res.iterations}")
+    a, b = per_phase_ms(default), per_phase_ms(res)
+    log("config1 k=3 routes, ms/iter by phase (default / all-kernels): " + ", ".join(
+        f"{p}={a.get(p, 0.0):.2f}/{b.get(p, 0.0):.2f}" for p in sorted(set(a) | set(b))))
+    log(f"config1 k=3 all-kernels: launches per iteration: " + ", ".join(
+        f"{n}={v / res.iterations:.2f}" for n, v in launches.items()))
+    record["config1_k3_routes"] = dict(steady_it_per_s=steady, default_ms=a,
+                                       all_kernels_ms=b)
     return launches
 
 
@@ -419,34 +560,37 @@ def solve_dim24(dev, record):
 
 
 def ptxas_report(text: str):
-    """Registers, stack and spills of the k-limb kernels (and of K5's
-    out-of-line add and multiply) at k=3 and 10."""
+    """Registers, stack and spills of the k-limb kernels (and of the
+    out-of-line add and multiply of K5 and K7) at k=3 and 10, and of K9."""
     names = ("matmul_xf_kernel", "schur_pairs_kernel", "spd_inverse_xf_kernel",
-             "xf_add_n", "xf_mul_n")
+             "steplen_xf_kernel", "elemwise_xf_kernel", "xf_add_n", "xf_mul_n")
     out, cur = [], None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            cur = next((f"{n} k={kk}" for n in names for kk in (3, 10)
-                        if f"{n}ILi{kk}E" in m.group(1)), None)
+            fn = m.group(1)
+            cur = next((f"{n} k={kk}" + (" mul" if "ELb1E" in fn else "")
+                        for n in names for kk in (3, 10) if f"{n}ILi{kk}E" in fn), None)
+            if "spd_inverse_dd_wide_kernel" in fn:
+                cur = "spd_inverse_dd_wide_kernel"
         elif cur and ("spill" in line or "Used" in line):
             out.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
     return out
 
 
 def kernel_summary(rows, launches):
-    """One entry per kernel: launches in its main path's solve (k=2 for
-    the dd kernels, k=3 for the k-limb ones), times and bound at that
-    path's first shape.  No PyTorch call computes a k-limb product or
-    inverse, so there is no library time."""
+    """One entry per kernel: launches in its main path's solve
+    (KERNEL_PATH), times and bound at that path's first shape.  No PyTorch
+    call computes a k-limb product, inverse, sandwich or elementwise
+    expansion, so there is no library time."""
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        k = 2 if name.endswith("_dd") else 3
+        path, k = KERNEL_PATH[name]
         first = next(r for r in rows if r["name"] == name and r["main_path"] and r["k"] == k)
         counter = "schur_pairs" if name.startswith("schur_pairs") else name.split(" ")[0]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[k][counter],
+            launches=launches[path][counter],
             max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=None))
@@ -461,15 +605,17 @@ def main():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     log(smi)
     dev = torch.device("cuda", 0)
+    t_start = time.time()
     record = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   device=torch.cuda.get_device_name(0))
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} device {record['device']}")
 
     # the pool's exit terminates both workers, on success and on failure
-    with get_context("spawn").Pool(2) as pool:
+    with get_context("spawn").Pool(3) as pool:
         cpu_k2 = pool.apply_async(cpu_solve, (8, 5, 2))
         cpu_k3 = pool.apply_async(cpu_solve, (8, 5, 3))
+        cpu_all = pool.apply_async(cpu_solve, (8, 5, 3, ALL_KERNELS_ROUTE))
 
         from clrs_tpu_torch.ops import _build
 
@@ -487,12 +633,16 @@ def main():
 
         rows = check_kernels(dev, record)
         launches = {2: solve_config1(dev, record, 2, cpu_k2, 1e-20, 1e-9, None,
-                                     ("spd_inverse_dd", "schur_pairs", "matmul_dd")),
-                    3: solve_config1(dev, record, 3, cpu_k3, None, 1e-12, "optimal",
-                                     ("schur_pairs", "matmul_xf", "spd_inverse_xf"))}
-    launches["dim24"] = solve_dim24(dev, record)
+                                     ("spd_inverse_dd", "schur_pairs", "matmul_dd"))[0]}
+        launches[3], default_k3 = solve_config1(
+            dev, record, 3, cpu_k3, None, 1e-12, "optimal",
+            ("schur_pairs", "matmul_xf", "spd_inverse_xf"))
+        launches["dim24"] = solve_dim24(dev, record)
+        launches["all"] = solve_all_kernels(dev, record, cpu_all, default_k3)
 
     kernels = kernel_summary(rows, launches)
+    record["total_s"] = time.time() - t_start
+    log(f"chip_smoke: {record['total_s']:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(record, kernels=kernels), f, indent=1)

@@ -23,8 +23,12 @@ The arithmetic runs in k-limb expansions, k = ``precision_k`` (2..12).
 On a CUDA problem (``use_cuda_matmul`` on by default there) the products
 of the pairings, weighted-A and trace-A go through K3 (k=2) or K4
 (k >= 3), the Schur core through K2, and S_j^-1 and Q^-1 through K1 (k=2)
-or K5 (k >= 3); ``use_cuda_inverse`` also sends X^-1 there.  On the CPU
-the same routing runs the kernels' plain versions.
+or K5 (k >= 3); ``use_cuda_inverse`` also sends X^-1 there, and
+``use_cuda_steplength`` sends the step lengths through K7 and
+``use_cuda_elemwise`` every k-limb add and multiply of the phases through
+K8.  With all three on, every kernel of the port runs: the all-kernels
+route.  On the CPU the same routing runs the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -59,8 +63,9 @@ from clrs_tpu_torch.core.problem import (
     bd_map,
     bd_scalar_identity,
 )
-from clrs_tpu_torch.ops.cuda_xf import xf_spd_inverse_batched
+from clrs_tpu_torch.ops.cuda_xf import steplen_sandwich_xf, xf_spd_inverse_batched
 from clrs_tpu_torch.ops.linalg import (
+    jacobi_min_eig,
     xf_inverse_lu,
     xf_min_eig_sym,
     xf_spd_inverse,
@@ -68,6 +73,7 @@ from clrs_tpu_torch.ops.linalg import (
 )
 from clrs_tpu_torch.ops.xfloat import (
     XF,
+    elemwise_cuda,
     xf_abs,
     xf_add,
     xf_div,
@@ -110,6 +116,13 @@ class SolverConfig:
     use_lu_inverse: bool = False  # X^-1 via LU instead of Cholesky
     use_lu_schur: bool = False  # S_j and Q via LU instead of Cholesky
     use_cuda_inverse: bool = False  # X^-1 through the K1/K5 SPD-inverse kernel
+    # step lengths through K7 (the k-limb sandwich L^-1 dM L^-T per block
+    # group) and the float64 Jacobi bound, as the reference's
+    # use_pallas_steplength; scalar blocks keep xf_min_eig_sym
+    use_cuda_steplength: bool = False
+    # every k-limb add and multiply of the phases through K8 (one launch
+    # each), as the reference's CLRS_XF_ELEMWISE_PALLAS_MIN_K gate
+    use_cuda_elemwise: bool = False
     # pairing / weighted-A / trace-A products through K3/K4, the Schur core
     # through K2, S_j^-1 and Q^-1 through K1/K5.  None = on when the
     # problem lies on a CUDA device.
@@ -440,12 +453,38 @@ def compute_search_direction(problem, P, p, d, R, X_inv, Y, decomp,
     return dx, dX, dy, dY
 
 
-def compute_step_length(M, dM, gamma: float, info: BlockInfo):
+def compute_step_length(M, dM, gamma: float, info: BlockInfo, use_cuda: bool = False):
     """alpha = min(1, -gamma/lambda_min), lambda_min over all blocks.
-    Returns (alpha as a 0-dim float64 tensor, ok)."""
-    lam, ok = map_block_scalar(xf_min_eig_sym, info, M, dM)
+    Returns (alpha as a 0-dim float64 tensor, ok).  use_cuda takes the
+    K7 route at every limb count: the reference keeps float64 limbs off
+    its Pallas route (solver.py:705-710), the port has no other limbs."""
+    if use_cuda:
+        lam, ok = _step_length_lambda_cuda(M, dM, info)
+    else:
+        lam, ok = map_block_scalar(xf_min_eig_sym, info, M, dM)
     alpha = torch.where(lam > -gamma, 1.0, -gamma / torch.clamp(lam, max=-1e-300))
     return torch.clamp(alpha, max=1.0), ok
+
+
+def _step_length_lambda_cuda(M, dM, info: BlockInfo):
+    """lambda_min through K7 (solver._step_length_lambda_pallas): one K7
+    launch per block-size group gives L^-1 dM L^-T in float64, whose
+    symmetric part goes to the float64 Jacobi bound; scalar blocks take
+    xf_min_eig_sym (lambda = dM/M, nothing to fuse)."""
+    val = ok = None
+    for size, jls in block_groups(info).items():
+        Ms = stack_xf([M[j][l] for (j, l) in jls])
+        Ds = stack_xf([dM[j][l] for (j, l) in jls])
+        if size == 1:
+            lam, okb = xf_min_eig_sym(Ms, Ds)
+        else:
+            W, okb = steplen_sandwich_xf(Ms.limbs.transpose(0, 1),
+                                         Ds.limbs.transpose(0, 1))
+            lam = jacobi_min_eig((W + W.transpose(-1, -2)) * 0.5)
+        v, okg = torch.amin(lam), torch.all(okb)
+        val = v if val is None else torch.minimum(val, v)
+        ok = okg if ok is None else ok & okg
+    return val, ok
 
 
 def compute_error_bd(P) -> XF:
@@ -529,7 +568,7 @@ def make_ipm_phases(problem: SDPProblem, cfg: SolverConfig):
         return beta_c, R2
 
     def phase_steplength(M, dM):
-        return compute_step_length(M, dM, cfg.gamma, info)
+        return compute_step_length(M, dM, cfg.gamma, info, cfg.use_cuda_steplength)
 
     def phase_update(problem, state, dx, dy, dX, dY, alpha_p, alpha_d, pd_feas,
                      P, p, d, mu, beta_c):
@@ -566,7 +605,7 @@ def make_ipm_phases(problem: SDPProblem, cfg: SolverConfig):
         )
         return (x_new, y_new, X_new, Y_new), diag
 
-    return dict(
+    phases = dict(
         mu_R_Xinv=phase_mu_R_Xinv,
         decomp=phase_decomp,
         residuals=phase_residuals,
@@ -575,6 +614,19 @@ def make_ipm_phases(problem: SDPProblem, cfg: SolverConfig):
         steplength=phase_steplength,
         update=phase_update,
     )
+    if cfg.use_cuda_elemwise:
+        phases = {name: _with_elemwise_cuda(fn) for name, fn in phases.items()}
+    return phases
+
+
+def _with_elemwise_cuda(fn):
+    """fn with every xf_add/xf_mul it makes sent through K8."""
+
+    def run(*args):
+        with elemwise_cuda():
+            return fn(*args)
+
+    return run
 
 
 # ---------------------------------------------------------------------------

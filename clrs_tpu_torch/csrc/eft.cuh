@@ -376,3 +376,7 @@ __device__ void xf_halving_sum(double* v, size_t limb_stride, int np2, double (&
 
 // The limb counts the k-limb kernels are instantiated for.
 #define CLRS_FOR_EACH_K(X) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12)
+// K7 and K8 also take k=2, as the Pallas kernels do: the K=2 instance adds
+// and multiplies by the dd sequences and divides and takes square roots by
+// the generic Newton steps (two at k=2), as ops/xops.py does.
+#define CLRS_FOR_EACH_K_FROM_2(X) X(2) CLRS_FOR_EACH_K(X)

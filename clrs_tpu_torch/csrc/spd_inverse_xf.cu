@@ -22,18 +22,19 @@
 // the many call sites share one body per K: the kernel waits on its
 // dependent chain, not on instruction issue, and the build stays short.
 // The Mosaic one-hot row, column and pivot picks (pallas_xf.py:755-770)
-// are plain indexing here.
+// are plain indexing here.  The Cholesky and the forward substitution are
+// chol_xf.cuh's, which K7 (steplen_xf.cu) shares.
 #include <cuda_runtime.h>
 
-#include "eft.cuh"
+#include "chol_xf.cuh"
 
 namespace {
 
 template <int K>
-__global__ void spd_inverse_xf_kernel(const double* __restrict__ a,
-                                      double* __restrict__ out,
-                                      double* __restrict__ okf,
-                                      double* __restrict__ scratch, int n, int np2) {
+__global__ void __launch_bounds__(clrs::kMaxRows)
+    spd_inverse_xf_kernel(const double* __restrict__ a, double* __restrict__ out,
+                          double* __restrict__ okf, double* __restrict__ scratch, int n,
+                          int np2) {
   using namespace clrs;
   const size_t nn = (size_t)n * n;
   const size_t pn = (size_t)n * np2;  // limb stride of the product vectors
@@ -43,86 +44,12 @@ __global__ void spd_inverse_xf_kernel(const double* __restrict__ a,
   double* L = scratch + b * (2 * K * nn + K * pn);
   double* W = L + K * nn;
   double* P = W + K * nn;  // per-thread product vectors, np2 each
-  double* ok = okf + b * n;
+
+  block_cholesky_xf<K>(A, L, P, okf + b * n, n, np2);
+  block_forward_rows_xf<K>(L, nullptr, W, P, n, np2);  // W = L^-1
 
   const int tid = threadIdx.x;
-  const bool active = tid < n;
-  __shared__ double piv[K];
-
-  for (size_t e = tid; e < K * nn; e += blockDim.x) {
-    L[e] = 0.0;
-    W[e] = 0.0;
-  }
-  if (active) ok[tid] = 1.0;
-  __syncthreads();
-
-  double x[K], y[K], s[K], c[K];
-  // Cholesky, column j: thread i forms s_i = A[i, j] - sum_t L[i, t] L[j, t].
-  for (int j = 0; j < n; ++j) {
-    if (active) {
-      const int i = tid;
-      double* p = P + (size_t)i * np2;
-      for (int t = 0; t < n; ++t) {
-        load_xf<K>(L + (size_t)i * n + t, nn, x);
-        load_xf<K>(L + (size_t)j * n + t, nn, y);
-        xf_mul_n<K>(x, y, c);
-        store_xf<K>(p + t, pn, c);
-      }
-      for (int t = n; t < np2; ++t)
-        for (int q = 0; q < K; ++q) p[q * pn + t] = 0.0;
-      xf_halving_sum<K>(p, pn, np2, c);
-#pragma unroll
-      for (int q = 0; q < K; ++q) c[q] = -c[q];
-      load_xf<K>(A + (size_t)i * n + j, nn, x);
-      xf_add_n<K>(x, c, s);
-      if (i == j)
-        for (int q = 0; q < K; ++q) piv[q] = s[q];
-    }
-    __syncthreads();
-    const bool pos = piv[0] > 0.0;
-    if (tid == 0) ok[j] = pos ? 1.0 : 0.0;
-    double d[K], ljj[K];
-#pragma unroll
-    for (int q = 0; q < K; ++q) d[q] = pos ? piv[q] : (q == 0 ? 1.0 : 0.0);
-    xf_sqrt<K>(d, ljj);
-    if (active) {
-      const int i = tid;
-      xf_div<K>(s, ljj, c);
-#pragma unroll
-      for (int q = 0; q < K; ++q) c[q] = i == j ? ljj[q] : (i < j ? 0.0 : c[q]);
-      store_xf<K>(L + (size_t)i * n + j, nn, c);
-    }
-    __syncthreads();
-  }
-
-  // W = L^-1, row i: thread col solves column col (it reads and writes only
-  // its own column of W, so the rows need no barrier between them).
-  if (active) {
-    const int col = tid;
-    double* p = P + (size_t)col * np2;
-    for (int i = 0; i < n; ++i) {
-      for (int t = 0; t < n; ++t) {
-        load_xf<K>(L + (size_t)i * n + t, nn, x);
-        load_xf<K>(W + (size_t)t * n + col, nn, y);
-        xf_mul_n<K>(x, y, c);
-        store_xf<K>(p + t, pn, c);
-      }
-      for (int t = n; t < np2; ++t)
-        for (int q = 0; q < K; ++q) p[q * pn + t] = 0.0;
-      xf_halving_sum<K>(p, pn, np2, c);
-#pragma unroll
-      for (int q = 0; q < K; ++q) {
-        c[q] = -c[q];
-        x[q] = (q == 0 && col == i) ? 1.0 : 0.0;
-      }
-      xf_add_n<K>(x, c, s);
-      load_xf<K>(L + (size_t)i * n + i, nn, y);
-      xf_div<K>(s, y, c);
-      store_xf<K>(W + (size_t)i * n + col, nn, c);
-    }
-  }
-  __syncthreads();
-
+  double x[K], y[K], c[K];
   // A^-1 = W^T W by sequential rank-1 accumulation over the rows t of W.
   for (size_t e = tid; e < nn; e += blockDim.x) {
     const int r = (int)(e / n), col = (int)(e % n);
@@ -143,6 +70,7 @@ template <int K>
 int launch(const double* a, double* out, double* okf, double* scratch, int B, int n,
            int np2, cudaStream_t stream) {
   if (B <= 0) return 0;
+  if (n > clrs::kMaxRows) return (int)cudaErrorInvalidValue;
   const int threads = ((n + 31) / 32) * 32;
   spd_inverse_xf_kernel<K><<<B, threads, 0, stream>>>(a, out, okf, scratch, n, np2);
   return (int)cudaGetLastError();

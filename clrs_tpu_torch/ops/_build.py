@@ -44,6 +44,13 @@ _SIGNATURES = {
     "clrs_matmul_dd": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
     # k, a, b, c, B, n, K, Kp, m, stream
     "clrs_matmul_xf": [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
+    # k, m, dm, w, okf, scratch, B, n, np2, stream
+    "clrs_steplen_xf": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # k, op, a, lda, b, ldb, out, N, stream
+    "clrs_elemwise_xf": [_I, _I, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P,
+                         ctypes.c_longlong, _P],
+    # a, out, okf, scratch, B, n, np2, stream
+    "clrs_spd_inverse_dd_wide": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -15,6 +15,14 @@ launches the kernel (and counts the launch in
 Pallas kernel's algorithm, halving trees included, so it differs from
 ``ops/linalg.xf_spd_inverse`` (which sums with ``xf_sum``'s odd-fold tree
 and solves L^T x = W instead of forming W^T W) in the low limbs.
+
+K9 is ``csrc/spd_inverse_dd_wide.cu`` (replaces
+``pallas_dd._spd_inverse_wide_kernel``): K1's sequences in the
+batch-minor layout (2, n, n, B).  The Pallas wrapper pads the batch with
+identity blocks to whole chunks of its grid; the kernel's last thread
+block simply runs short, and every matrix is independent, so nothing is
+padded here.  ``dd_spd_inverse_wide`` is its wrapper; like the
+reference's, no solver route calls it.
 """
 
 from __future__ import annotations
@@ -120,3 +128,47 @@ def xf_spd_inverse_batched(x_limbs: torch.Tensor):
     """Adapter for the stacked-XF layout: limbs (2, B, n, n)."""
     inv, ok = dd_spd_inverse(x_limbs.transpose(0, 1))
     return inv.transpose(0, 1), ok
+
+
+# ---------------------------------------------------------------------------
+# K9: batched dd SPD inverse, batch-minor layout
+# ---------------------------------------------------------------------------
+
+
+def dd_spd_inverse_wide_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K9: limbs (B, 2, n, n) -> (inv (B, 2, n, n), ok
+    (B,)).  K9 runs K1's sequences on each matrix, so this is K1's plain
+    version."""
+    return dd_spd_inverse_torch(limbs)
+
+
+def dd_spd_inverse_wide(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9 wrapper: limbs (B, 2, n, n) float64 -> (inv, ok (B,)).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    if limbs.device.type == "cpu":
+        return dd_spd_inverse_wide_torch(limbs)
+    if limbs.device.type != "cuda":
+        raise ValueError(f"dd_spd_inverse_wide: unsupported device {limbs.device}")
+    B, two, n, n2 = limbs.shape
+    if two != 2 or n != n2 or limbs.dtype != F64:
+        raise ValueError(f"dd_spd_inverse_wide: need (B, 2, n, n) float64, got "
+                         f"{tuple(limbs.shape)} {limbs.dtype}")
+    if n > 512:
+        raise ValueError(f"dd_spd_inverse_wide: n={n} > 512 (one thread per row, at "
+                         "most 512 a block)")
+    x = limbs.permute(1, 2, 3, 0).contiguous()
+    np2 = 1
+    while np2 < n:
+        np2 *= 2
+    out = torch.empty_like(x)
+    okf = torch.empty((n, B), dtype=F64, device=x.device)
+    scratch = torch.empty((B * (4 * n * n + 2 * n * np2),), dtype=F64, device=x.device)
+    rc = _build.library().clrs_spd_inverse_dd_wide(
+        x.data_ptr(), out.data_ptr(), okf.data_ptr(), scratch.data_ptr(), B, n, np2,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "clrs_spd_inverse_dd_wide")
+    dd_spd_inverse_wide.launches += 1
+    return out.permute(3, 0, 1, 2), torch.all(okf > 0.5, dim=0)
+
+
+dd_spd_inverse_wide.launches = 0

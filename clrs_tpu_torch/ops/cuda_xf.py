@@ -9,6 +9,13 @@ accumulation.  K4 is ``csrc/matmul_xf.cu`` (replaces
 its contraction zero-padded to a multiple of 8 as the Pallas wrappers pad
 it.  K5 is ``csrc/spd_inverse_xf.cu`` (replaces
 ``pallas_xf._spd_inverse_kernel_k``): the batched SPD inverse at k >= 3.
+K7 is ``csrc/steplen_xf.cu`` (replaces
+``pallas_xf._steplen_sandwich_kernel_k``): the step-length sandwich
+L^-1 dM L^-T with M = L L^T, in plain float64 out.  K8 is
+``csrc/elemwise_xf.cu`` (replaces ``pallas_xf._elemwise_kernel_k``): the
+elementwise k-limb add or multiply that ``xfloat.xf_add``/``xf_mul`` call
+inside ``xfloat.elemwise_cuda()`` (``SolverConfig.use_cuda_elemwise``).
+K7 and K8 take k = 2..12.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises), counting launches in its
@@ -34,6 +41,11 @@ from clrs_tpu_torch.ops.xfloat import (
     fast_two_sum,
     two_prod,
 )
+
+# K5 and K7 give one thread to each row of a matrix; at k = 10..12 a thread
+# takes up to 255 registers, so a block holds at most 256 of them
+# (csrc/chol_xf.cuh: kMaxRows).
+MAX_ROWS = 256
 
 
 def _check_cuda(name: str, *ts: torch.Tensor):
@@ -210,14 +222,13 @@ def xf_matmul_k(a: XF, b: XF) -> XF:
 # ---------------------------------------------------------------------------
 
 
-def spd_inverse_xf_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K5: limbs (B, k, n, n) -> (inv (B, k, n, n), ok
-    (B,)).  Per block: Cholesky by columns with the pivot flag on the
-    leading limb, W = L^-1 by rows, A^-1 = W^T W by sequential rank-1
-    accumulation; every matvec through the zero-padded halving tree."""
-    B, k, n, _ = limbs.shape
-    dev = limbs.device
-    A = [limbs[:, q] for q in range(k)]
+def _cholesky_xops(A):
+    """K5's and K7's Cholesky of the limb list A ((B, n, n) each) by
+    columns, with the pivot flag on the leading limb and a non-positive
+    pivot replaced by 1; returns (L as a limb list, ok flags (B, n))."""
+    k = len(A)
+    B, n, _ = A[0].shape
+    dev = A[0].device
     L = [torch.zeros((B, n, n), dtype=F64, device=dev) for _ in range(k)]
     okf = torch.ones((B, n), dtype=torch.bool, device=dev)
     rows = torch.arange(n, device=dev)
@@ -235,17 +246,34 @@ def spd_inverse_xf_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
         for q in range(k):
             L[q][:, :, j] = torch.where(at, ljj[q][:, None],
                                         torch.where(below, c[q], 0.0))
-    # W = L^-1 by forward substitution, one row at a time
-    W = [torch.zeros((B, n, n), dtype=F64, device=dev) for _ in range(k)]
-    for i in range(n):
+    return L, okf
+
+
+def _forward_rows_xops(L, R):
+    """W = L^-1 R by forward substitution, one row at a time, the sum over
+    all columns of L (rows of W not yet solved are zero); limb lists of
+    (B, n, n)."""
+    W = [torch.zeros_like(x) for x in L]
+    for i in range(L[0].shape[-1]):
         acc = xops.sum_axis(xops.mul([x[:, i, :, None] for x in L], W), axis=-2)
-        ei = (rows == i).to(F64).expand(B, n)
-        nrm = xops.add([ei] + [torch.zeros_like(ei)] * (k - 1), xops.neg(acc))
+        nrm = xops.add([x[:, i, :] for x in R], xops.neg(acc))
         qv = xops.div(nrm, [x[:, i, i, None] for x in L])
-        for q in range(k):
-            W[q][:, i, :] = qv[q]
+        for q, x in enumerate(W):
+            x[:, i, :] = qv[q]
+    return W
+
+
+def spd_inverse_xf_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5: limbs (B, k, n, n) -> (inv (B, k, n, n), ok
+    (B,)).  Per block: Cholesky by columns with the pivot flag on the
+    leading limb, W = L^-1 by rows, A^-1 = W^T W by sequential rank-1
+    accumulation; every matvec through the zero-padded halving tree."""
+    B, k, n, _ = limbs.shape
+    L, okf = _cholesky_xops([limbs[:, q] for q in range(k)])
+    eye = torch.eye(n, dtype=F64, device=limbs.device).expand(B, n, n)
+    W = _forward_rows_xops(L, [eye] + [torch.zeros_like(eye)] * (k - 1))
     # inv = W^T W
-    acc = [torch.zeros((B, n, n), dtype=F64, device=dev) for _ in range(k)]
+    acc = [torch.zeros_like(W[0]) for _ in range(k)]
     for t in range(n):
         r = [x[:, t, :] for x in W]
         acc = xops.add(acc, xops.mul([x[:, :, None] for x in r],
@@ -261,8 +289,8 @@ def spd_inverse_xf(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     B, k, n, n2 = limbs.shape
     if k < 3 or n != n2:
         raise ValueError(f"spd_inverse_xf: need (B, k>=3, n, n), got {tuple(limbs.shape)}")
-    if n > 1024:
-        raise ValueError(f"spd_inverse_xf: n={n} > 1024 (one thread per row)")
+    if n > MAX_ROWS:
+        raise ValueError(f"spd_inverse_xf: n={n} > {MAX_ROWS} (one thread per row)")
     limbs = limbs.contiguous()
     np2 = _np2(n)
     out = torch.empty_like(limbs)
@@ -287,3 +315,95 @@ def xf_spd_inverse_batched(x_limbs: torch.Tensor):
         return _dd_spd_inverse_batched(x_limbs)
     inv, ok = spd_inverse_xf(x_limbs.transpose(0, 1))
     return inv.transpose(0, 1), ok
+
+
+# ---------------------------------------------------------------------------
+# K7: step-length sandwich
+# ---------------------------------------------------------------------------
+
+
+def steplen_sandwich_xf_torch(m: torch.Tensor, dm: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7: m, dm (B, k, n, n) -> (W (B, n, n) float64,
+    ok (B,)).  Per block: M = L L^T as K5 factors it, W1 = L^-1 dM by
+    rows, X = W1 L^-T by columns over all n terms with L[j, t] masked to
+    t < j (X overwrites W1 column by column), W = limb 0 + limb 1 of X."""
+    B, k, n, _ = m.shape
+    L, okf = _cholesky_xops([m[:, q] for q in range(k)])
+    X = _forward_rows_xops(L, [dm[:, q] for q in range(k)])
+    cols = torch.arange(n, device=m.device)
+    for j in range(n):
+        mask = (cols < j).to(F64)
+        lm = [x[:, j, None, :] * mask for x in L]  # L[j, t] for t < j, else +-0
+        acc = xops.sum_axis(xops.mul(X, lm), axis=-1)
+        nrm = xops.add([x[:, :, j] for x in X], xops.neg(acc))
+        qv = xops.div(nrm, [x[:, j, j, None] for x in L])
+        for q, x in enumerate(X):
+            x[:, :, j] = qv[q]
+    return X[0] + X[1], torch.all(okf, dim=1)
+
+
+def steplen_sandwich_xf(m: torch.Tensor, dm: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7 wrapper: m, dm (B, k, n, n) float64, k = 2..12 -> (W (B, n, n),
+    ok (B,))."""
+    if m.device.type == "cpu":
+        return steplen_sandwich_xf_torch(m, dm)
+    _check_cuda("steplen_sandwich_xf", m, dm)
+    B, k, n, n2 = m.shape
+    if n != n2 or tuple(dm.shape) != tuple(m.shape):
+        raise ValueError(f"steplen_sandwich_xf: bad shapes {tuple(m.shape)} "
+                         f"{tuple(dm.shape)}")
+    if n > MAX_ROWS:
+        raise ValueError(f"steplen_sandwich_xf: n={n} > {MAX_ROWS} (one thread per row)")
+    m, dm = m.contiguous(), dm.contiguous()
+    np2 = _np2(n)
+    w = torch.empty((B, n, n), dtype=F64, device=m.device)
+    okf = torch.empty((B, n), dtype=F64, device=m.device)
+    scratch = torch.empty((B * k * (2 * n * n + n * np2),), dtype=F64, device=m.device)
+    rc = _build.library().clrs_steplen_xf(
+        k, m.data_ptr(), dm.data_ptr(), w.data_ptr(), okf.data_ptr(), scratch.data_ptr(),
+        B, n, np2, _stream(m))
+    _build.check(rc, "clrs_steplen_xf", k)
+    steplen_sandwich_xf.launches += 1
+    return w, torch.all(okf > 0.5, dim=1)
+
+
+steplen_sandwich_xf.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: elementwise k-limb add / multiply
+# ---------------------------------------------------------------------------
+
+_ELEMWISE_OPS = {"add": (0, xops.add), "mul": (1, xops.mul)}
+
+
+def elemwise_xf_torch(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: ``xops.add`` or ``xops.mul`` on the limb rows
+    of a, b (k, N) -> (k, N)."""
+    return torch.stack(_ELEMWISE_OPS[op][1](list(a), list(b)))
+
+
+def elemwise_xf(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K8 wrapper: op "add" or "mul" of a, b (k, N) float64, k = 2..12,
+    each limb row contiguous -> (k, N)."""
+    if a.device.type == "cpu":
+        return elemwise_xf_torch(op, a, b)
+    _check_cuda("elemwise_xf", a, b)
+    if a.ndim != 2 or tuple(b.shape) != tuple(a.shape) or op not in _ELEMWISE_OPS:
+        raise ValueError(f"elemwise_xf: bad call {op} {tuple(a.shape)} {tuple(b.shape)}")
+    k, N = a.shape
+    out = torch.empty((k, N), dtype=F64, device=a.device)
+    if N == 0:
+        return out
+    a, b = (x if x.stride(1) == 1 or N == 1 else x.contiguous() for x in (a, b))
+    rc = _build.library().clrs_elemwise_xf(
+        k, _ELEMWISE_OPS[op][0], a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+        out.data_ptr(), N, _stream(a))
+    _build.check(rc, "clrs_elemwise_xf", k)
+    elemwise_xf.launches += 1
+    return out
+
+
+elemwise_xf.launches = 0

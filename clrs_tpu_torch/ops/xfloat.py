@@ -13,8 +13,12 @@ What the reference carries and this module leaves out: scaled expansions
 (a TPU float32 exponent-range workaround), the XLA optimization barriers
 (eager torch never rewrites ``(a+b)-a`` to ``b``, and each op rounds on
 its own, so nothing contracts into an FMA), the ``_loop_*`` kernels that
-take k >= 13 (such a k raises ``NotImplementedError``) and the
-elementwise-Pallas gate.
+take k >= 13 (such a k raises ``NotImplementedError``), and the
+gates of the elementwise Pallas kernel (float32, TPU backend, size, limb
+count).  In their place one switch, off by default: inside
+``elemwise_cuda()`` every ``xf_add``/``xf_mul`` goes through K8
+(``ops/cuda_xf.elemwise_xf``); the solver turns it on with
+``SolverConfig.use_cuda_elemwise``.
 
 Never reduce limbs with ``torch.sum``/``torch.matmul``: their summation
 order is the library's, which breaks the error-free transforms and the
@@ -23,6 +27,7 @@ limb-for-limb agreement.  ``xf_sum`` is the tree the reference uses.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -319,15 +324,29 @@ def _lift2(a, b):
     return a, b
 
 
+def _broadcast_shape(*shapes) -> tuple:
+    """The common shape, as torch.broadcast_shapes gives it; that one's
+    Python implementation takes ~60 us a call, a third of a solve on the
+    CPU."""
+    first = tuple(shapes[0])
+    if all(tuple(s) == first for s in shapes[1:]):
+        return first
+    return np.broadcast_shapes(*shapes)
+
+
 def _operands(a: XF, b: XF):
     """Limb lists of a and b broadcast to their common value shape, and
     the result's limb count max(a.k, b.k)."""
     k = max(a.k, b.k)
     _check_k(k)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    al = [torch.broadcast_to(a.limbs[i], shape) for i in range(a.k)]
-    bl = [torch.broadcast_to(b.limbs[i], shape) for i in range(b.k)]
-    return al, bl, k
+    sa, sb = a.shape, b.shape
+    shape = _broadcast_shape(sa, sb)
+    al, bl = a.limbs.unbind(0), b.limbs.unbind(0)
+    if sa != shape:
+        al = [torch.broadcast_to(x, shape) for x in al]
+    if sb != shape:
+        bl = [torch.broadcast_to(x, shape) for x in bl]
+    return list(al), list(bl), k
 
 
 # ---------------------------------------------------------------------------
@@ -500,11 +519,54 @@ def _qw_mul(al, bl):
     return _vec_sum([r0, r1, r2, r3])
 
 
+# Elementwise add/mul through K8, one launch per op, while on (off by
+# default): the counterpart of the reference's elementwise-Pallas gate
+# (xfloat.py:707-738) without its float32, TPU-backend, size and limb-count
+# thresholds.  At k = 2 and k >= 5 K8 computes xf_add/xf_mul's own
+# sequences; at k = 3 and 4 it runs the kernels' generic cascades instead of
+# the triple- and quad-word sequences, as on the TPU.
+_ELEMWISE_CUDA = False
+
+
+@contextlib.contextmanager
+def elemwise_cuda():
+    """Send every xf_add/xf_mul through K8 for the duration of a
+    with-block."""
+    global _ELEMWISE_CUDA
+    old = _ELEMWISE_CUDA
+    _ELEMWISE_CUDA = True
+    try:
+        yield
+    finally:
+        _ELEMWISE_CUDA = old
+
+
+def _elemwise_kernel(op: str, a: XF, b: XF) -> XF:
+    """a op b through K8: both operands broadcast to the common shape and
+    zero-padded to k = max(a.k, b.k) limbs (xfloat.py:732-738), one launch
+    on a CUDA tensor, the plain version on a CPU one."""
+    from clrs_tpu_torch.ops.cuda_xf import elemwise_xf
+
+    k = max(a.k, b.k)
+    _check_k(k)
+    shape = _broadcast_shape(a.shape, b.shape)
+
+    def rows(x: XF):
+        limbs = x.broadcast_to(shape).limbs.reshape(x.k, -1)
+        if x.k < k:
+            limbs = torch.cat([limbs, limbs.new_zeros((k - x.k, limbs.shape[1]))])
+        return limbs
+
+    return XF(elemwise_xf(op, rows(a), rows(b)).reshape((k,) + shape))
+
+
 def xf_add(a: XF, b: XF) -> XF:
     """The reference's dispatch (xfloat.py:741-777): dd, triple-word and
     quad-word sequences at matching k = 2, 3, 4; otherwise the shorter
     operand is padded with exact zeros and the cascade adds k limbs."""
     a, b = _lift2(a, b)
+    if _ELEMWISE_CUDA:
+        return _elemwise_kernel("add", a, b)
     al, bl, k = _operands(a, b)
     if a.k == b.k == 2:
         return XF.from_limb_list(dd_add(al[0], al[1], bl[0], bl[1]))
@@ -522,6 +584,8 @@ def xf_mul(a: XF, b: XF) -> XF:
     """The reference's dispatch (xfloat.py:993-1014); mixed limb counts
     go through the cascade unpadded."""
     a, b = _lift2(a, b)
+    if _ELEMWISE_CUDA:
+        return _elemwise_kernel("mul", a, b)
     al, bl, k = _operands(a, b)
     if a.k == b.k == 2:
         return XF.from_limb_list(dd_mul(al[0], al[1], bl[0], bl[1]))
@@ -600,7 +664,7 @@ def xf_lt(a: XF, b: XF) -> torch.Tensor:
 def xf_where(cond, a: XF, b: XF) -> XF:
     a, b = _lift2(a, b)
     cond = torch.as_tensor(cond, device=a.device)
-    shape = torch.broadcast_shapes(tuple(cond.shape), a.shape, b.shape)
+    shape = _broadcast_shape(tuple(cond.shape), a.shape, b.shape)
     al = a.broadcast_to(shape).limbs
     bl = b.broadcast_to(shape).limbs
     return XF(torch.where(torch.broadcast_to(cond, shape)[None], al, bl))

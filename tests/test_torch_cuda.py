@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K5 on the card, each bit for bit against its
+"""The port's CUDA kernels K1-K9 on the card, each bit for bit against its
 plain PyTorch version (the comparison that chip_smoke.py also makes at the
 main path's and at wide shapes).  These tests need an NVIDIA GPU and nvcc
 and skip elsewhere; the file imports no JAX, so it runs on the card's
@@ -121,3 +121,83 @@ def test_unbuilt_limb_count_raises(cuda):
     a = torch.zeros((13, 1, 2, 2), dtype=torch.float64, device=cuda)
     with pytest.raises(NotImplementedError):
         cuda_xf.matmul_xf(a, a)
+
+
+ALL_KS = [2] + BUILT_KS  # K7 and K8 (eft.cuh: CLRS_FOR_EACH_K_FROM_2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", ALL_KS)
+def test_steplen_xf_kernel_bitwise(cuda, k):
+    rng = np.random.default_rng(200 + k)
+    m = spd_batch(rng, 3, 6, 1e6)
+    m = torch.cat([m, torch.zeros((3, k - 2, 6, 6), dtype=torch.float64)], dim=1).to(cuda)
+    m[-1, 0, 2, 2] = -1.0  # the last block is indefinite
+    d = rand_xf(rng, (3, 6, 6), k).transpose(0, 1).to(cuda)
+    d = (d + d.transpose(-1, -2)) / 2
+    before = cuda_xf.steplen_sandwich_xf.launches
+    w_k, ok_k = cuda_xf.steplen_sandwich_xf(m, d)
+    w_p, ok_p = cuda_xf.steplen_sandwich_xf_torch(m, d)
+    assert cuda_xf.steplen_sandwich_xf.launches == before + 1
+    assert torch.equal(ok_k, ok_p) and ok_k.tolist() == [True, True, False]
+    assert bitwise(w_k, w_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", ALL_KS)
+@pytest.mark.parametrize("op", ["add", "mul"])
+def test_elemwise_xf_kernel_bitwise(cuda, k, op):
+    rng = np.random.default_rng(300 + k)
+    a, b = (rand_xf(rng, (1000,), k).to(cuda) for _ in range(2))
+    before = cuda_xf.elemwise_xf.launches
+    assert bitwise(cuda_xf.elemwise_xf(op, a, b), cuda_xf.elemwise_xf_torch(op, a, b))
+    assert cuda_xf.elemwise_xf.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_spd_inverse_wide_kernel_bitwise(cuda):
+    """40 blocks of 9x9: a thread block takes 32, so the second runs short."""
+    a = spd_batch(np.random.default_rng(400), 40, 9, 1e8).to(cuda)
+    a[5, 0, 0, 0] = -1.0  # indefinite
+    before = cuda_dd.dd_spd_inverse_wide.launches
+    inv_k, ok_k = cuda_dd.dd_spd_inverse_wide(a)
+    inv_p, ok_p = cuda_dd.dd_spd_inverse_wide_torch(a)
+    inv_1, ok_1 = cuda_dd.dd_spd_inverse(a)
+    assert cuda_dd.dd_spd_inverse_wide.launches == before + 1
+    assert torch.equal(ok_k, ok_p) and torch.equal(ok_k, ok_1) and not bool(ok_k[5])
+    good = ok_p.nonzero()[:, 0]
+    assert bitwise(inv_k[good], inv_p[good]) and bitwise(inv_k[good], inv_1[good])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["spd_inverse_xf", "steplen_xf"])
+def test_row_kernels_at_max_rows(cuda, kernel):
+    """K5 and K7 at the largest n their wrappers admit, at k=12, where a
+    thread takes the most registers: both launch, flag the indefinite
+    block and agree with float64 LAPACK on the other to 1e-10 of its
+    largest entry; one row more raises."""
+    k, n = 12, cuda_xf.MAX_ROWS
+    rng = np.random.default_rng(500)
+    m = spd_batch(rng, 2, n, 1e2)
+    m = torch.cat([m, torch.zeros((2, k - 2, n, n), dtype=torch.float64)], dim=1).to(cuda)
+    m[1, 0, 3, 3] = -1.0  # indefinite
+    m0 = m[0, 0]
+    if kernel == "spd_inverse_xf":
+        out, ok = cuda_xf.spd_inverse_xf(m)
+        got, want = out[0, 0], torch.linalg.inv(m0)
+        too_big = lambda x: cuda_xf.spd_inverse_xf(x)  # noqa: E731
+    else:
+        d = rand_xf(rng, (2, n, n), k).transpose(0, 1).to(cuda)
+        d = (d + d.transpose(-1, -2)) / 2
+        got, ok = cuda_xf.steplen_sandwich_xf(m, d)
+        got = got[0]
+        L = torch.linalg.cholesky(m0)
+        half = torch.linalg.solve_triangular(L, d[0, 0], upper=False)
+        want = torch.linalg.solve_triangular(L, half.T, upper=False).T
+        too_big = lambda x: cuda_xf.steplen_sandwich_xf(x, x)  # noqa: E731
+    assert ok.tolist() == [True, False]
+    scale = float(torch.max(torch.abs(want)))
+    assert float(torch.max(torch.abs(got - want))) <= 1e-10 * scale
+    wider = torch.zeros((1, k, n + 1, n + 1), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        too_big(wider)

@@ -510,3 +510,170 @@ def test_spd_inverse_k_plain_accuracy(k):
         assert worst < cond * k_ulp(k), worst
     finally:
         mpmath.mp.prec = old
+
+
+# ---------------------------------------------------------------------------
+# K7: step-length sandwich
+# ---------------------------------------------------------------------------
+
+
+def steplen_inputs(rng, B, n, k):
+    """M SPD (B, k, n, n), its last block indefinite when B > 1, and dM
+    symmetric indefinite."""
+    m = spd_xf(rng, B, n, k, 1e3)
+    if B > 1:
+        m[-1, 0, 1, 1] = -5.0
+    d = np.moveaxis(rand_xf(rng, (B, n, n), k), 0, 1)
+    return m, (d + np.swapaxes(d, -1, -2)) / 2
+
+
+def test_steplen_plain_matches_pallas_interpret():
+    """K7's plain version against the Pallas kernel in interpret mode at
+    k=2, two 4x4 blocks, the second indefinite: W and flags bit for bit.
+    W is the float64 value limb 0 + limb 1, which interpret mode's
+    reordering of the low limbs does not reach here.  k=3 is held in the
+    step-length test below, over two grid steps, which keep every bit,
+    unlike the k < 6 matmul bodies (ROADMAP.md, reference quirks).  At k=6
+    interpret mode compiles the kernel for ~100 s and is not run: its
+    arithmetic is test_xops_match_pallas_xops[6]'s, and the card holds K7
+    against this plain version at every k."""
+    from clrs_tpu.ops.pallas_xf import xf_steplen_sandwich_pallas_k
+
+    k, n, B = 2, 4, 2
+    m, d = steplen_inputs(np.random.default_rng(93), B, n, k)
+    w_p, ok_p = xf_steplen_sandwich_pallas_k(jnp.asarray(m), jnp.asarray(d),
+                                             interpret=True)
+    w_t, ok_t = cuda_xf.steplen_sandwich_xf_torch(t(m), t(d))
+    assert np.asarray(ok_p).tolist() == ok_t.tolist() == [True, False]
+    assert_bitwise(np.asarray(w_p)[None], w_t[None])
+
+
+def test_step_length_lambda_cuda_matches_reference_pallas(monkeypatch):
+    """The K7 route of the step length against the reference's Pallas
+    route on the same blocks at k=3, a group of two 3x3 blocks (the scalar
+    blocks of both routes are xf_min_eig_sym's, held in
+    test_torch_linalg.py).  The group's sandwich W is bit for bit the
+    Pallas kernel's in interpret mode over two grid steps; lambda, a
+    float64 Jacobi bound on W whose rotations are each library's own
+    matmuls, agrees to 1e-13 of the blocks' norm; the flags exactly."""
+    from types import SimpleNamespace
+
+    from clrs_tpu.core.solver import _step_length_lambda_pallas
+    from clrs_tpu.ops import pallas_xf
+    from clrs_tpu_torch.core.solver import _step_length_lambda_cuda
+
+    k, n = 3, 3
+    rng = np.random.default_rng(99)
+    (m, d), (m2, d2) = (steplen_inputs(rng, 1, n, k) for _ in range(2))
+    info = SimpleNamespace(J=1, L=[2], Y_blocksizes=[[n, n]])
+    blocks = {"M": [[m[0], m2[0]]], "dM": [[d[0], d2[0]]]}
+    sandwich, seen = pallas_xf.xf_steplen_sandwich_pallas_k, []
+
+    def capture(ms, ds, **kwargs):
+        seen.append((ms, ds) + tuple(sandwich(ms, ds, **kwargs)))
+        return seen[-1][2:]
+
+    monkeypatch.setattr(pallas_xf, "xf_steplen_sandwich_pallas_k", capture)
+    lam_j, ok_j = _step_length_lambda_pallas(
+        *([[jxf(x) for x in row] for row in blocks[key]] for key in ("M", "dM")), info)
+    lam_t, ok_t = _step_length_lambda_cuda(
+        *([[txf(x) for x in row] for row in blocks[key]] for key in ("M", "dM")), info)
+    (ms, ds, w_p, ok_p), = seen
+    w_t, ok_w = cuda_xf.steplen_sandwich_xf_torch(t(ms), t(ds))
+    assert np.asarray(ok_p).tolist() == ok_w.tolist() == [True, True]
+    assert_bitwise(np.asarray(w_p)[None], w_t[None])
+    scale = max(np.max(np.abs(np.linalg.eigvalsh(x[0]))) for x in (d[0], d2[0]))
+    assert bool(ok_j) and bool(ok_t)
+    assert abs(float(lam_t) - float(lam_j)) <= 1e-13 * scale, (float(lam_t), float(lam_j))
+
+
+# ---------------------------------------------------------------------------
+# K8: elementwise k-limb add and multiply, and xfloat's gate
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [2, 3, 6])
+def test_elemwise_plain_matches_pallas_interpret(k):
+    """K8's plain version against the Pallas kernel in interpret mode
+    (N = 300, three row bands of 128 lanes with a ragged end).  The add is
+    bitwise.  In the multiply interpret mode's XLA:CPU program contracts
+    the two_prod products into fused multiply-adds, as for K1 (ROADMAP.md,
+    reference quirks): the leading limbs agree bit for bit, the value to
+    the k-limb ulp; op by op, _XOps multiplies bit for bit as the plain
+    version does."""
+    from clrs_tpu.ops.pallas_xf import _XOps, _elemwise_batched_k
+
+    rng = np.random.default_rng(110 + k)
+    a, b = rand_xf(rng, (300,), k), rand_xf(rng, (300,), k)
+    for op in ("add", "mul"):
+        want = np.asarray(_elemwise_batched_k(jnp.asarray(a), jnp.asarray(b), op,
+                                              interpret=True))
+        got = cuda_xf.elemwise_xf_torch(op, t(a), t(b))
+        if op == "add":
+            assert_bitwise(want, got)
+        else:
+            assert np.array_equal(want[0], got[0].numpy())
+            assert_close_xf(want, got.numpy(), k_ulp(k))
+            assert_limbs_bitwise(_XOps(False, k).mul(jlist(a), jlist(b)), list(got))
+
+
+def test_elemwise_gate_bitwise_at_k6():
+    """Inside elemwise_cuda(), xf_add and xf_mul of equal-k operands go
+    through K8's plain version and at k=6 return the ungated results bit for
+    bit, scalars and broadcast shapes included; a mixed-k multiply is padded
+    to k limbs first, as the reference's gate pads it; at k=2 K8 computes
+    the dd sequences, bit for bit; on leaving the block the switch is off."""
+    from clrs_tpu_torch.ops import xfloat as tx
+    from clrs_tpu_torch.ops import xops
+
+    rng = np.random.default_rng(120)
+    cases = [((), ()), ((4, 1), (1, 5)), ((3, 3), (3, 3))]
+    before = cuda_xf.elemwise_xf.launches
+    for sa, sb in cases:
+        a, b = txf(rand_xf(rng, sa, 6)), txf(rand_xf(rng, sb, 6))
+        plain = (tx.xf_add(a, b), tx.xf_mul(a, b))
+        with tx.elemwise_cuda():
+            gated = (tx.xf_add(a, b), tx.xf_mul(a, b))
+        for p, g in zip(plain, gated):
+            assert_bitwise(p.limbs.numpy(), g)
+    a, b = txf(rand_xf(rng, (7,), 6)), txf(rand_xf(rng, (7,), 3))
+    padded = list(b.limbs) + [torch.zeros(7, dtype=torch.float64)] * 3
+    with tx.elemwise_cuda():
+        assert_limbs_bitwise(xops.mul(list(a.limbs), padded), list(tx.xf_mul(a, b).limbs))
+    a2, b2 = txf(rand_dd(rng, (5,))), txf(rand_dd(rng, (5,)))
+    plain = (tx.xf_add(a2, b2), tx.xf_mul(a2, b2))
+    with tx.elemwise_cuda():
+        gated = (tx.xf_add(a2, b2), tx.xf_mul(a2, b2))
+    for p, g in zip(plain, gated):
+        assert_bitwise(p.limbs.numpy(), g)
+    assert tx._ELEMWISE_CUDA is False
+    assert cuda_xf.elemwise_xf.launches == before  # CPU tensors: the plain version
+
+
+# ---------------------------------------------------------------------------
+# K9: dd SPD inverse, batch-minor layout
+# ---------------------------------------------------------------------------
+
+
+def test_spd_inverse_wide_plain_matches_pallas_interpret():
+    """K9's plain version against the Pallas kernel in interpret mode: five
+    blocks, one indefinite, which the Pallas wrapper runs in chunks of two
+    (the last chunk padded with an identity block, whose result it drops)
+    and the port in one unpadded batch.  Flags bitwise; values to
+    cond * 2^-100, interpret mode contracting the dd products as for K1;
+    and bit for bit K1's plain version."""
+    from clrs_tpu.ops.pallas_dd import dd_spd_inverse_pallas_wide
+
+    n, cond = 3, 1e4
+    rng = np.random.default_rng(130)
+    limbs = np.stack([spd_dd(rng, n, cond) for _ in range(5)])
+    limbs[3, 0, 1, 1] = -20.0
+    inv_p, ok_p = dd_spd_inverse_pallas_wide(jnp.asarray(limbs), interpret=True,
+                                             max_chunk_elems=2 * n * n)
+    inv_t, ok_t = cuda_dd.dd_spd_inverse_wide_torch(t(limbs))
+    assert np.asarray(ok_p).tolist() == ok_t.tolist() == [True, True, True, False, True]
+    for i in (0, 1, 2, 4):
+        assert_close_dd(np.asarray(inv_p[i]), inv_t[i].numpy(), cond * 2.0 ** -100)
+    inv_1, ok_1 = cuda_dd.dd_spd_inverse_torch(t(limbs))
+    assert torch.equal(ok_1, ok_t)
+    assert_bitwise(inv_1.numpy(), inv_t)

@@ -14,7 +14,11 @@ compiled: op by op it takes twice its compile time, and it is the costliest
 phase of the iteration.  On
 the kernel route (``use_cuda_matmul=True``: the plain versions of K4, K2 at
 k=3 and K5) the sums run sequentially and the inverses as W^T W, so the
-phases agree in value to 2^-140 relative (k=3 keeps ~159 bits).
+phases agree in value to 2^-140 relative (k=3 keeps ~159 bits).  The
+all-kernels route (the kernel route with X^-1 through K5, the step
+lengths through K7 and every k-limb add and multiply through K8) agrees to
+the same 2^-140, its step lengths, a Jacobi bound instead of eigenvalues,
+to 1e-10 of the reference's.
 """
 
 import jax
@@ -31,6 +35,7 @@ from clrs_tpu.core.solver import make_ipm_phases as j_phases
 from clrs_tpu_torch.apps.delsarte import build_delsarte_constraints as t_build
 from clrs_tpu_torch.core.solver import SolverConfig, initial_state, make_ipm_phases
 from clrs_tpu_torch.interop import problem_from_numpy
+from clrs_tpu_torch.ops import cuda_dd, cuda_xf
 from clrs_tpu_torch.ops.xfloat import XF, xf_add
 
 from test_torch_slice import to_numpy_tree
@@ -105,10 +110,23 @@ def port_problem(reference):
     return problem_from_numpy(reference[0], info, device=CPU)
 
 
-def port_iteration(problem, use_cuda, alphas):
-    cfg = SolverConfig(**OPTS, use_cuda_matmul=use_cuda)
+def port_iteration(problem, use_cuda, alphas, **routes):
+    cfg = SolverConfig(**OPTS, use_cuda_matmul=use_cuda, **routes)
     return run_iteration(make_ipm_phases(problem, cfg), problem,
                          initial_state(problem, cfg), False, alphas)
+
+
+def assert_phases_close(ref, got, rel):
+    for phase in ref:
+        if phase == "alpha":
+            continue
+        rl, gl = list(leaves(ref[phase])), list(leaves(got[phase]))
+        assert len(rl) == len(gl), phase
+        for r, g in zip(rl, gl):
+            r = XF(torch.from_numpy(np.array(r.limbs)))
+            scale = float(torch.max(torch.abs(r.limbs[0]))) or 1.0
+            diff = float(torch.max(torch.abs(xf_add(r, -g).limbs[0])))
+            assert diff <= rel * scale, (phase, diff / scale)
 
 
 def test_k3_iteration_phases_bitwise(reference, port_problem):
@@ -133,13 +151,28 @@ def test_k3_iteration_kernel_route_matches(reference, port_problem):
     assert oks == ref_oks
     for (ra, ga) in zip(ref["alpha"], got["alpha"]):
         assert abs(ra - ga) <= 1e-12 * abs(ra), (ra, ga)
-    for phase in ref:
-        if phase == "alpha":
-            continue
-        rl, gl = list(leaves(ref[phase])), list(leaves(got[phase]))
-        assert len(rl) == len(gl), phase
-        for r, g in zip(rl, gl):
-            r = XF(torch.from_numpy(np.array(r.limbs)))
-            scale = float(torch.max(torch.abs(r.limbs[0]))) or 1.0
-            diff = float(torch.max(torch.abs(xf_add(r, -g).limbs[0])))
-            assert diff <= REL_KERNEL_ROUTE * scale, (phase, diff / scale)
+    assert_phases_close(ref, got, REL_KERNEL_ROUTE)
+
+
+def test_k3_iteration_all_kernels_route_matches(reference, port_problem, monkeypatch):
+    """Every kernel's plain version on the route the card takes with
+    use_cuda_inverse, use_cuda_steplength and use_cuda_elemwise: K7's and
+    K8's plain versions must run, and on the CPU no launch is counted."""
+    _, ref, ref_oks = reference
+    calls = {"elemwise_xf_torch": 0, "steplen_sandwich_xf_torch": 0}
+    for name in calls:
+        def counted(*args, _name=name, _fn=getattr(cuda_xf, name)):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(cuda_xf, name, counted)
+    counts = (cuda_xf.elemwise_xf.launches, cuda_xf.steplen_sandwich_xf.launches,
+              cuda_dd.dd_spd_inverse_wide.launches)
+    got, oks = port_iteration(port_problem, True, ref["alpha"], use_cuda_inverse=True,
+                              use_cuda_steplength=True, use_cuda_elemwise=True)
+    assert oks == ref_oks
+    for (ra, ga) in zip(ref["alpha"], got["alpha"]):
+        assert abs(ra - ga) <= 1e-10 * abs(ra), (ra, ga)
+    assert_phases_close(ref, got, REL_KERNEL_ROUTE)
+    assert calls["elemwise_xf_torch"] > 0 and calls["steplen_sandwich_xf_torch"] == 4, calls
+    assert counts == (cuda_xf.elemwise_xf.launches, cuda_xf.steplen_sandwich_xf.launches,
+                      cuda_dd.dd_spd_inverse_wide.launches)
