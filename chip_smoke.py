@@ -4,8 +4,9 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. requires a CUDA device; prints the card's name and power limit, and
-     starts the CPU reference solves of phases 4 and 5 in two worker
-     processes (they need no card);
+     starts the CPU reference solves of phases 4, 5 and 7 and the plain
+     versions of phase 3's K5 and K7 tree rows in worker processes (they
+     need no card);
   2. builds the hand-written kernels (clrs_tpu_torch/csrc, one nvcc per
      source, all at once) and prints the build seconds and ptxas's
      registers and spills of the k-limb kernels at k=3 and k=10;
@@ -16,9 +17,14 @@ Phases (any failure raises, and the script exits non-zero):
      Delsarte config-1 shape of the main path, K2, K4 and K5 at k = 3, 4,
      6, 10, K7 at k = 2, 3, 4, 6, 10, K8 at every k = 2..12 (and at k >= 5
      against xfloat's own add and multiply), K9 also against K1, and at
-     wide shapes: limbs and flags must be bitwise equal; prints median
-     times of kernel and plain version and each call's bound (bytes over
-     3.35 TB/s or FP64 operations over 34 TFLOP/s, the larger);
+     wide shapes; K8 also on broadcast operands read in place and on
+     operands of fewer limbs, K5 and K7 also at n = 1, 2, 31, 32, 33, 64,
+     65 (every shape of their halving trees) at k = 3 and 12 with one
+     indefinite block: limbs and flags must be bitwise equal; prints the
+     kernel's median time of one call, its time per call over a run of
+     back-to-back calls, the plain version's median time, and each call's
+     bound (bytes over 3.35 TB/s or FP64 operations over 34 TFLOP/s, the
+     larger);
   4. solves the Delsarte kissing-number bound in dimension 8 at 2d=10 on
      the card at k=2 with every launch counter reset first: K1, K2 and K3
      must have launched, the bound must be 240 to 1e-9, and the run must
@@ -41,7 +47,13 @@ Phases (any failure raises, and the script exits non-zero):
      and end `optimal` with the bound 240 to 1e-12 within 2 iterations of
      phase 5; prints both routes' steady it/s and ms/iter by phase side by
      side;
-  8. prints the kernels' JSON line, then the result line
+  8. profiles iterations 3-6 of phase 7's route with torch.profiler: the
+     device's busy share, the device time per launch of K8, K5 and K7,
+     launches per iteration by kernel name with copies apart, the aten ops
+     under K8's call path (a copy among them fails the phase), and the
+     step length's split between K7, the float64 Jacobi bound and
+     xf_min_eig_sym;
+  9. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} as the last line.
 The full record also goes to chiprun_out/chip_smoke.json.
 """
@@ -206,6 +218,22 @@ def median_ms(fn, reps: int, warm: bool = True) -> float:
     return statistics.median(times)
 
 
+def many_ms(fn, count: int) -> float:
+    """fn's time per call over count back-to-back calls between two CUDA
+    events (warmed up first): where the device outpaces the host this is
+    the host's call path, where not the kernel's own time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(count):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / count
+
+
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int64),
                                               b.contiguous().view(torch.int64))
@@ -243,18 +271,60 @@ INVERSE_SHAPES = (("S_j 1x11x11", (1, 11, 1e8)), ("Q 1x10x10", (1, 10, 1e6)),
                   ("signs 10x1x1", (10, 1, 1.0)))
 ELEMWISE_SHAPES = (("()", ()), ("(11,)", (11,)), ("(6,6)", (6, 6)), ("(10,1,1)", (10, 1, 1)),
                    ("(11,11)", (11, 11)), ("wide 2^20", (1 << 20,)))
+# K8 on operands of other shapes or limb counts, read in place: (label,
+# (shape a, limbs a), (shape b, limbs b)), limbs 0 meaning k and -1 k - 1
+ELEMWISE_OPERANDS = (("(10,1,1)x(10,11,11)", ((10, 1, 1), 0), ((10, 11, 11), 0)),
+                     ("()x(11,)", ((), 0), ((11,), 0)),
+                     ("(6,1)x(1,6)", ((6, 1), 0), ((1, 6), 0)),
+                     ("2-limb (11,11)", ((11, 11), 2), ((11, 11), 0)),
+                     ("(k-1)-limb (6,6)", ((6, 6), -1), ((6, 6), 0)))
+# K5 and K7 where the halving tree changes shape (csrc/chol_xf.cuh)
+TREE_SIZES = (1, 2, 31, 32, 33, 64, 65)
+TREE_WORKERS = 4  # CPU processes for the tree rows' plain versions
 
 
-def check_kernels(dev, record):
+def tree_inputs(k, n):
+    """The tree rows' inputs, on the CPU, the same in every process: two
+    SPD blocks for K5, two blocks M and a symmetric dM for K7, the second
+    block of each indefinite."""
+    rng = np.random.default_rng(1000 + 100 * k + n)
+    a = spd_batch(rng, 2, n, k, 1e6, "cpu")
+    m = spd_batch(rng, 2, n, k, 1e6, "cpu")
+    a[1, 0, n // 2, n // 2] = m[1, 0, n // 2, n // 2] = -1.0
+    d = rand_xf(rng, (2, n, n), k, "cpu").transpose(0, 1)
+    return a, m, ((d + d.transpose(-1, -2)) / 2).contiguous()
+
+
+def tree_plain(k, n):
+    """K5's and K7's plain versions on tree_inputs(k, n), in a CPU worker
+    (at k=12 and n = 64, 65 they take minutes of small launches on the
+    card): outputs, flags and seconds."""
+    torch.set_num_threads(1)
+    from clrs_tpu_torch.ops import cuda_xf
+
+    a, m, d = tree_inputs(k, n)
+    t0 = time.time()
+    inv, ok = cuda_xf.spd_inverse_xf_torch(a)
+    t1 = time.time()
+    w, okw = cuda_xf.steplen_sandwich_xf_torch(m, d)
+    return dict(inv=inv.numpy(), ok=ok.numpy(), w=w.numpy(), okw=okw.numpy(),
+                k5_s=t1 - t0, k7_s=time.time() - t1)
+
+
+def check_kernels(dev, record, tree_futures):
     """Phase 3: every kernel bitwise against its plain version."""
     from clrs_tpu_torch.ops import cuda_dd, cuda_xf
 
     rng = np.random.default_rng(0)
     rows = []
 
-    def case(name, k, label, kernel, plain, args, work, reps, plain_reps, main):
+    def case(name, k, label, kernel, plain, args, work, reps, plain_reps, main,
+             plain_ms=None):
         out_k = kernel(*args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         out_p = plain(*args)
+        end.record()
         torch.cuda.synchronize()
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
@@ -262,19 +332,27 @@ def check_kernels(dev, record):
         vk, vp = outs_k[0], outs_p[0]
         if ok is not None:  # compare the blocks whose factorization succeeded
             assert torch.equal(outs_k[1], ok), f"{name} k={k} {label}: flags differ"
+            bad_k, bad_p = vk[~ok], vp[~ok]  # the others: NaN in the same places
+            nan_k, nan_p = torch.isnan(bad_k), torch.isnan(bad_p)
+            assert torch.equal(nan_k, nan_p) and bits_equal(bad_k[~nan_k], bad_p[~nan_p]), \
+                f"{name} k={k} {label}: a flagged block differs"
             vk, vp = vk[ok], vp[ok]
         err = float(torch.max(torch.abs(vk - vp))) if vk.numel() else 0.0
         assert bits_equal(vk, vp), f"{name} k={k} {label}: not bitwise equal ({err})"
         ms = median_ms(lambda: kernel(*args), reps)
-        plain_ms = median_ms(lambda: plain(*args), plain_reps, warm=False)
+        ms_many = many_ms(lambda: kernel(*args), max(5, min(200, int(20.0 / max(ms, 0.05)))))
+        if plain_ms is None:
+            plain_ms = (median_ms(lambda: plain(*args), plain_reps, warm=False)
+                        if plain_reps else start.elapsed_time(end))
         bound_ms, bound_by = bound(*work)
-        row = dict(name=name, k=k, shape=label, ms=ms, plain_ms=plain_ms,
+        row = dict(name=name, k=k, shape=label, ms=ms, ms_many=ms_many, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, main_path=main)
         if ok is not None:
             row["flags"] = [bool(v) for v in ok.tolist()][:8]
         rows.append(row)
         log(f"kernel {name:15s} k={k:<2d} {label:30s} bitwise-equal  kernel {ms:9.4f} ms"
-            f"  plain {plain_ms:10.3f} ms  bound {bound_ms:.6f} ms ({bound_by})")
+            f" (many {ms_many:9.4f})  plain {plain_ms:10.3f} ms  bound {bound_ms:.6f} ms "
+            f"({bound_by})")
         return row
 
     # K1 at config-1 shapes, then wide: 256 blocks of 64x64 at cond ~1e10,
@@ -355,6 +433,25 @@ def check_kernels(dev, record):
                False)
     assert row["flags"][5] is False, "K7: the indefinite block was not flagged"
 
+    # K5 and K7 at every shape of their dot products' halving tree (one term
+    # per lane, a group below a warp, a warp, terms kept in the lane), two
+    # blocks of which the second is indefinite; their plain versions ran in
+    # CPU workers on the same inputs (tree_plain), and their times are those
+    for (k, n), future in tree_futures.items():
+        a, m, d = (x.to(dev) for x in tree_inputs(k, n))
+        plain = future.get()
+        for name, kern, args, outs, secs, work in (
+                ("spd_inverse_xf", cuda_xf.spd_inverse_xf, (a,), ("inv", "ok"), "k5_s",
+                 spd_inverse_work(k, 2, n)),
+                ("steplen_xf", cuda_xf.steplen_sandwich_xf, (m, d), ("w", "okw"), "k7_s",
+                 steplen_work(k, 2, n))):
+            want = tuple(torch.from_numpy(plain[o]).to(dev) for o in outs)
+            row = case(name, k, f"tree 2x{n}x{n} (1 indefinite)", kern,
+                       lambda *_, want=want: want, args, work, 5, 0, False,
+                       plain_ms=1e3 * plain[secs])
+            row["plain_device"] = "cpu"
+            assert row["flags"] == [True, False], f"{name} n={n}: flags {row['flags']}"
+
     # K8 at every k, add and multiply, at the solver's shapes and wide; at
     # k >= 5 (equal-k operands) it computes xfloat's own sequences
     from clrs_tpu_torch.ops.xfloat import XF, xf_add, xf_mul
@@ -372,6 +469,22 @@ def check_kernels(dev, record):
                            3 if main and k < 6 else 1, main)
                 if k >= 5:
                     got = cuda_xf.elemwise_xf(op, a2, b2).reshape(a.shape)
+                    assert bits_equal(got, xf_op(XF(a), XF(b)).limbs), \
+                        f"elemwise_xf k={k} {op} {label}: not xfloat's result"
+                    row["equals_xfloat"] = True
+        # operands read in place: broadcast, and shorter in limbs (padded
+        # with zeros in the kernel's loads, as the reference pads them)
+        for label, (sa, ka), (sb, kb) in ELEMWISE_OPERANDS:
+            ka, kb = (k if v == 0 else k - 1 if v < 0 else min(v, k) for v in (ka, kb))
+            a, b = rand_xf(rng, sa, ka, dev), rand_xf(rng, sb, kb, dev)
+            n_out = int(np.prod(np.broadcast_shapes(sa, sb)))
+            for op, xf_op in (("add", xf_add), ("mul", xf_mul)):
+                row = case("elemwise_xf", k, f"{op} {label}",
+                           lambda x, y, op=op: cuda_xf.elemwise_xf(op, x, y),
+                           lambda x, y, op=op: cuda_xf.elemwise_xf_torch(op, x, y),
+                           (a, b), elemwise_work(k, n_out, op), 50, 3 if k < 6 else 1, True)
+                if k >= 5 and ka == kb:
+                    got = cuda_xf.elemwise_xf(op, a, b)
                     assert bits_equal(got, xf_op(XF(a), XF(b)).limbs), \
                         f"elemwise_xf k={k} {op} {label}: not xfloat's result"
                     row["equals_xfloat"] = True
@@ -536,6 +649,170 @@ def solve_all_kernels(dev, record, cpu_future, default):
     return launches
 
 
+PROFILE_ITERATIONS = (3, 6)  # the window: iterations 3 to 6 of the solve
+COPY_WORDS = ("copy", "Memcpy", "Memset", "CatArray", "cat_")
+
+
+RANGES = ("K8 call path", "alpha", "alpha: K7", "alpha: float64 Jacobi",
+          "alpha: xf_min_eig_sym")
+
+
+def profile_all_kernels(dev, record, steady_it_s):
+    """Phase 8: torch.profiler over iterations 3-6 of config 1 at k=3 on
+    the all-kernels route.  Prints the device's busy time per iteration as
+    a share of the window's wall time (which the profiler stretches) and of
+    the unprofiled iteration of phase 7 (steady_it_s), the device time per
+    launch of K8, K5 and K7, launches per iteration by kernel name (copies
+    apart), the copies that K8's call path issued, and how the step length
+    (alpha) splits between K7, the float64 Jacobi bound and the scalar
+    groups' xf_min_eig_sym.  Those parts, each
+    K8 call and alpha are marked with record_function ranges while the
+    window is open (a few us per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from clrs_tpu_torch.core import solver
+    from clrs_tpu_torch.ops import xfloat
+
+    first, last = PROFILE_ITERATIONS
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+    originals = {}
+
+    def ranged(owner, attr, label):
+        fn = getattr(owner, attr)
+        originals[(owner, attr)] = fn
+
+        def run(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+
+        setattr(owner, attr, run)
+
+    make_phases = solver.make_ipm_phases
+    count = [0]
+
+    def phases_with_window(problem, cfg):
+        phases = make_phases(problem, cfg)
+        start = phases["mu_R_Xinv"]
+
+        def first_phase(*args):
+            count[0] += 1
+            if count[0] in (first, last + 1):
+                torch.cuda.synchronize()
+                if count[0] == first:
+                    for (owner, attr), label in zip(
+                            ((xfloat, "_elemwise_kernel"), (solver, "compute_step_length"),
+                             (solver, "steplen_sandwich_xf"), (solver, "jacobi_min_eig"),
+                             (solver, "xf_min_eig_sym")), RANGES):
+                        ranged(owner, attr, label)
+                    prof.start()
+                    window["t0"] = time.perf_counter()
+                else:
+                    window["wall_s"] = time.perf_counter() - window["t0"]
+                    prof.stop()
+                    for (owner, attr), fn in originals.items():
+                        setattr(owner, attr, fn)
+            return start(*args)
+
+        return dict(phases, mu_R_Xinv=first_phase)
+
+    solver.make_ipm_phases = phases_with_window
+    try:
+        solve(8, 5, 3, dev, dict(ALL_KERNELS_ROUTE, maxiterations=last + 1))
+        torch.cuda.synchronize()
+    finally:
+        solver.make_ipm_phases = make_phases
+        for (owner, attr), fn in originals.items():
+            setattr(owner, attr, fn)
+    assert "wall_s" in window, "the profile window did not close"
+    iters = last - first + 1
+    t0 = time.time()
+    events = prof.events()
+    kernels, spans = {}, {}  # device work by name; the ranges' spans on the device
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            into = spans if e.name in RANGES else kernels
+            n, us = into.get(e.name, (0, 0.0))
+            into[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in kernels.values())
+    wall_us = 1e6 * window["wall_s"]
+    out = dict(iterations=iters, wall_ms_per_iter=wall_us / 1e3 / iters,
+               device_busy_ms_per_iter=busy_us / 1e3 / iters,
+               busy_share=busy_us / wall_us if wall_us else 0.0,
+               busy_share_of_unprofiled_iteration=busy_us / 1e3 / iters * steady_it_s / 1e3)
+    log(f"profile (config1 k=3 all-kernels, iterations {first}-{last}): wall "
+        f"{out['wall_ms_per_iter']:.2f} ms/iter under the profiler, device busy "
+        f"{out['device_busy_ms_per_iter']:.3f} ms/iter: busy share {out['busy_share']:.4f} "
+        f"of the profiled wall, {out['busy_share_of_unprofiled_iteration']:.4f} of phase 7's "
+        f"unprofiled iteration ({1e3 / steady_it_s:.2f} ms); {len(events)} events, read in "
+        f"{time.time() - t0:.1f} s")
+    if not kernels:
+        log("profile: the profiler showed no device time; the CUDA-event times above stand")
+    per_launch = {}
+    for tag, word in (("K8", "elemwise_xf_kernel"), ("K5", "spd_inverse_xf_kernel"),
+                      ("K7", "steplen_xf_kernel"), ("K4", "matmul_xf_kernel"),
+                      ("K2", "schur_pairs_kernel")):
+        n = sum(c for name, (c, _) in kernels.items() if word in name)
+        us = sum(u for name, (_, u) in kernels.items() if word in name)
+        per_launch[tag] = dict(launches_per_iter=n / iters,
+                               device_ms_per_launch=us / 1e3 / n if n else None)
+        log(f"profile: {tag} {n / iters:.2f} launches/iter, device "
+            + (f"{us / 1e3 / n:.5f} ms per launch" if n else "none"))
+    copies = {name: v for name, v in kernels.items() if any(w in name for w in COPY_WORDS)}
+    others = sorted(((v[0], name, v[1]) for name, v in kernels.items() if name not in copies),
+                    reverse=True)
+    log(f"profile: launches per iteration by kernel ({len(kernels)} names; copies apart):")
+    for n, name, us in others[:25]:
+        log(f"profile:   {n / iters:9.2f}  {us / 1e3 / iters:8.3f} ms/iter  {name[:100]}")
+    for name, (n, us) in sorted(copies.items(), key=lambda kv: -kv[1][0]):
+        log(f"profile:   copy {n / iters:9.2f}  {us / 1e3 / iters:8.3f} ms/iter  {name[:100]}")
+    # ops beneath K8's call path: none may copy
+    k8_ops = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.name == RANGES[0]:
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name != RANGES[0]:
+            p = p.cpu_parent
+        if p is not None and e.name.startswith("aten::"):
+            k8_ops[e.name] = k8_ops.get(e.name, 0) + 1
+    k8_copies = {n: c for n, c in k8_ops.items()
+                 if any(w in n for w in ("copy", "cat", "clone", "contiguous"))}
+    log(f"profile: aten ops under K8's call path per iteration: "
+        + (", ".join(f"{n}={c / iters:.2f}" for n, c in sorted(k8_ops.items())) or "none")
+        + f"; copies {k8_copies or 'none'}")
+    ranges = {}
+    for e in events:  # the ranges' host time, and the device span each covered
+        if e.device_type == DeviceType.CPU and e.name in RANGES:
+            r = ranges.setdefault(e.name, dict(calls=0, host_us=0.0))
+            r["calls"] += 1
+            r["host_us"] += e.time_range.elapsed_us()
+    for key, r in ranges.items():
+        r = ranges[key] = dict(calls_per_iter=r["calls"] / iters,
+                               host_ms_per_iter=r["host_us"] / 1e3 / iters,
+                               device_span_ms_per_iter=spans.get(key, (0, 0.0))[1] / 1e3 / iters)
+        log(f"profile: range {key:24s} {r['calls_per_iter']:8.2f} calls/iter, host "
+            f"{r['host_ms_per_iter']:8.3f} ms/iter, device span {r['device_span_ms_per_iter']:8.3f} "
+            f"ms/iter")
+    out.update(per_launch=per_launch, copies_per_iter={n: c / iters for n, (c, _) in copies.items()},
+               k8_call_path_aten_ops_per_iter={n: c / iters for n, c in k8_ops.items()},
+               ranges=ranges,
+               launches_per_iter={n: c / iters for n, (c, _) in kernels.items()})
+    record["profile_all_kernels_k3"] = out
+    assert not k8_copies, f"K8's call path issued copies: {k8_copies}"
+    # a range that a refactor bypassed would read 0: each must be entered
+    # every iteration, and the two around one kernel once per launch
+    lost = [key for key in RANGES if ranges.get(key, {}).get("calls_per_iter", 0) < 1]
+    assert not lost, f"profile ranges entered less than once per iteration: {lost}"
+    if kernels:
+        for key, tag in ((RANGES[0], "K8"), (RANGES[2], "K7")):
+            assert ranges[key]["calls_per_iter"] == per_launch[tag]["launches_per_iter"], (
+                f"range {key!r}: {ranges[key]['calls_per_iter']} calls/iter against "
+                f"{per_launch[tag]['launches_per_iter']} {tag} launches/iter")
+    return out
+
+
 def solve_dim24(dev, record):
     """Phase 6: the dimension-24 kissing bound (Leech lattice) on the card."""
     from clrs_tpu_torch import delsarte_lp_bound
@@ -561,7 +838,8 @@ def solve_dim24(dev, record):
 
 def ptxas_report(text: str):
     """Registers, stack and spills of the k-limb kernels (and of the
-    out-of-line add and multiply of K5 and K7) at k=3 and 10, and of K9."""
+    out-of-line add and multiply of K5 and K7) at k=3, 10 and 12, and of
+    K9; K8's instances are named by op and by the dense form."""
     names = ("matmul_xf_kernel", "schur_pairs_kernel", "spd_inverse_xf_kernel",
              "steplen_xf_kernel", "elemwise_xf_kernel", "xf_add_n", "xf_mul_n")
     out, cur = [], None
@@ -569,8 +847,12 @@ def ptxas_report(text: str):
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             fn = m.group(1)
-            cur = next((f"{n} k={kk}" + (" mul" if "ELb1E" in fn else "")
-                        for n in names for kk in (3, 10) if f"{n}ILi{kk}E" in fn), None)
+            cur = next((f"{n} k={kk}" for n in names for kk in (3, 10, 12)
+                        if f"{n}ILi{kk}E" in fn), None)
+            k8 = re.search(r"elemwise_xf_kernelILi\d+ELb([01])ELb([01])E", fn)
+            if cur and k8:
+                cur += (" mul" if k8.group(1) == "1" else " add") + (
+                    " dense" if k8.group(2) == "1" else "")
             if "spd_inverse_dd_wide_kernel" in fn:
                 cur = "spd_inverse_dd_wide_kernel"
         elif cur and ("spill" in line or "Used" in line):
@@ -612,10 +894,12 @@ def main():
         f"{torch.version.cuda} device {record['device']}")
 
     # the pool's exit terminates both workers, on success and on failure
-    with get_context("spawn").Pool(3) as pool:
+    with get_context("spawn").Pool(3 + TREE_WORKERS) as pool:
         cpu_k2 = pool.apply_async(cpu_solve, (8, 5, 2))
         cpu_k3 = pool.apply_async(cpu_solve, (8, 5, 3))
         cpu_all = pool.apply_async(cpu_solve, (8, 5, 3, ALL_KERNELS_ROUTE))
+        trees = sorted(((k, n) for k in (3, 12) for n in TREE_SIZES), key=lambda kn: -kn[0] * kn[1])
+        tree_futures = {kn: pool.apply_async(tree_plain, kn) for kn in trees}
 
         from clrs_tpu_torch.ops import _build
 
@@ -631,7 +915,7 @@ def main():
         for line in record["ptxas"]:
             log("ptxas: " + line)
 
-        rows = check_kernels(dev, record)
+        rows = check_kernels(dev, record, dict(sorted(tree_futures.items())))
         launches = {2: solve_config1(dev, record, 2, cpu_k2, 1e-20, 1e-9, None,
                                      ("spd_inverse_dd", "schur_pairs", "matmul_dd"))[0]}
         launches[3], default_k3 = solve_config1(
@@ -639,6 +923,7 @@ def main():
             ("schur_pairs", "matmul_xf", "spd_inverse_xf"))
         launches["dim24"] = solve_dim24(dev, record)
         launches["all"] = solve_all_kernels(dev, record, cpu_all, default_k3)
+    profile_all_kernels(dev, record, record["config1_k3_routes"]["steady_it_per_s"]["all-kernels"])
 
     kernels = kernel_summary(rows, launches)
     record["total_s"] = time.time() - t_start

@@ -1,123 +1,212 @@
 // The K-limb Cholesky and forward substitution that K5
 // (spd_inverse_xf.cu) and K7 (steplen_xf.cu) share, one thread block per
 // matrix, as the Pallas kernels share them (pallas_xf.py:753-812 and
-// :908-965).  Every thread of the block must call these functions: they
-// synchronize the block.  Matrices are K limbs of n x n entries, limb q of
-// entry e at X[q * n * n + e]; P holds one product vector of np2 entries
-// per thread (limb stride n * np2), np2 the power of two >= n.
+// :908-965), and the dot product both build on.  Every thread of the block
+// must call these functions: they synchronize the block, and their dot
+// products shuffle within each warp.  Matrices are K limbs of n x n
+// entries, limb q of entry e at X[q * n * n + e]; S holds one K-limb value
+// per row (limb q of row i at S[q * n + i]), in shared memory.
+//
+// Each dot product of the reference is a zero-padded halving tree
+// (xops.sum_axis) over np2 = the power of two >= n terms: level by level,
+// term t takes term t + half.  A group of G = min(np2, 32) lanes forms
+// one: lane l holds the terms t = l + G m (m < np2 / G), so the levels with
+// half >= G pair terms of the same lane and the levels below pair lane l
+// with lane l + half, which __shfl_down_sync(., half, G) delivers.  The
+// same additions in the same order, with no trip through memory: a dot
+// product is one multiply and log2(np2) dependent adds.  Each Cholesky
+// column and each solve row is then two steps with a barrier after each:
+// a group per row (column) forms s = a - dot into S, and a thread per row
+// (column) finishes it with the K-limb sqrt and div, whose dependent
+// chains set the kernels' time.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include "eft.cuh"
 
 namespace clrs {
 
-// One thread per row: a block holds at most kMaxRows threads, as many as the
-// register file takes at k = 10..12, where a thread uses up to 255
-// registers.  Wrappers refuse larger n (ops/cuda_xf.py: MAX_ROWS).
+// At k = 10..12 a thread takes up to 255 registers, so a block holds at
+// most 256 threads; the wrappers refuse n above kMaxRows (ops/cuda_xf.py:
+// MAX_ROWS), since the finishing step gives each row a thread.
 constexpr int kMaxRows = 256;
+constexpr int kBlockThreads = 256;
+// Terms a lane holds: np2 / 32 for n up to kMaxRows.
+constexpr int kMaxLaneTerms = kMaxRows / 32;
 
-// Product vector of thread `row`: p[t] = x(t) * y(t) for t < n, zeros up to
-// np2, then the zero-padded halving sum into r.
-template <int K, class X, class Y>
-__device__ __forceinline__ void matvec_xf(double* P, int row, int n, int np2, X x_of,
-                                          Y y_of, double (&r)[K]) {
-  const size_t pn = (size_t)n * np2;
-  double* p = P + (size_t)row * np2;
-  double x[K], y[K], c[K];
-  for (int t = 0; t < n; ++t) {
-    x_of(t, x);
-    y_of(t, y);
-    xf_mul_n<K>(x, y, c);
-    store_xf<K>(p + t, pn, c);
-  }
-  for (int t = n; t < np2; ++t)
-    for (int q = 0; q < K; ++q) p[q * pn + t] = 0.0;
-  xf_halving_sum<K>(p, pn, np2, r);
+__host__ __device__ inline int group_width(int np2) { return np2 < 32 ? np2 : 32; }
+
+// Threads of a block: a group for every row at once where 256 threads
+// allow, and at least n.
+inline int block_threads(int n, int np2) {
+  const int want = (n * group_width(np2) + 31) / 32 * 32;
+  return want < kBlockThreads ? want : kBlockThreads;
 }
 
-// A = L L^T by columns: thread i forms s_i = A[i, j] - sum_t L[i, t] L[j, t],
-// the pivot's leading limb sets ok[j] (1.0 / 0.0), a non-positive pivot is
-// replaced by 1 so that the factorization runs to its end.  L is zeroed
-// here; ok holds n flags.
+// sum_{t < n} x(t) y(t) by the zero-padded halving tree of width np2,
+// formed by the group of G = group_width(np2) lanes that holds this lane
+// (lane l = threadIdx.x % G of it); the sum is valid in the group's lane 0.
+// A group with no row to take passes active = false and sums zeros.  All
+// 32 lanes of a warp call this together.
+template <int K, class X, class Y>
+__device__ __forceinline__ void group_dot(int n, int np2, bool active, X x_of, Y y_of,
+                                          double (&r)[K]) {
+  const int G = group_width(np2);
+  const int M = np2 / G;  // terms per lane
+  const int l = threadIdx.x % G;
+  auto term = [&](int t, double(&p)[K]) {
+    if (active && t < n) {
+      double x[K], y[K];
+      x_of(t, x);
+      y_of(t, y);
+      xf_mul_c<K>(x, y, p);
+    } else {
+#pragma unroll
+      for (int q = 0; q < K; ++q) p[q] = 0.0;
+    }
+  };
+  if (M == 1) {
+    term(l, r);
+  } else {
+    // the levels with half >= G, inside the lane: the first one as the
+    // terms are formed, then M/4, ..., 1
+    double p[kMaxLaneTerms / 2][K];
+#pragma unroll
+    for (int m = 0; m < kMaxLaneTerms / 2; ++m) {
+      if (m < M / 2) {
+        double u[K], v[K];
+        term(l + G * m, u);
+        term(l + G * (m + M / 2), v);
+        xf_add_c<K>(u, v, p[m]);
+      }
+    }
+#pragma unroll
+    for (int h = kMaxLaneTerms / 4; h >= 1; h /= 2) {
+      if (2 * h <= M / 2) {
+#pragma unroll
+        for (int m = 0; m < h; ++m) xf_add_c<K>(p[m], p[m + h], p[m]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < K; ++q) r[q] = p[0][q];
+  }
+  // the levels with half < G, across the group's lanes
+  for (int half = G / 2; half >= 1; half /= 2) {
+    double y[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) y[q] = __shfl_down_sync(0xffffffffu, r[q], half, G);
+    xf_add_c<K>(r, y, r);
+  }
+}
+
+// A = L L^T by columns: for column j, a group per row i >= j forms
+// s_i = A[i, j] - sum_t L[i, t] L[j, t] into S, then a thread per row takes
+// the pivot s_j, whose leading limb sets ok[j] (1.0 / 0.0), a non-positive
+// pivot replaced by 1 so that the factorization runs to its end, and
+// L[i, j] = s_i / sqrt(pivot).  Rows i < j keep the zero they start with.
+// L is zeroed here; ok holds n flags.
 template <int K>
-__device__ void block_cholesky_xf(const double* A, double* L, double* P, double* ok,
-                                  int n, int np2) {
+__device__ void block_cholesky_xf(const double* A, double* L, double* S, double* ok, int n,
+                                  int np2) {
   const size_t nn = (size_t)n * n;
   const int tid = threadIdx.x;
-  const bool active = tid < n;
-  __shared__ double piv[K];
+  const int G = group_width(np2);
+  const int group = tid / G, groups = blockDim.x / G;
   for (size_t e = tid; e < K * nn; e += blockDim.x) L[e] = 0.0;
-  if (active) ok[tid] = 1.0;
+  if (tid < n) ok[tid] = 1.0;
   __syncthreads();
 
   double x[K], s[K], c[K];
   for (int j = 0; j < n; ++j) {
-    if (active) {
-      const int i = tid;
-      matvec_xf<K>(
-          P, i, n, np2, [&](int t, double(&v)[K]) { load_xf<K>(L + (size_t)i * n + t, nn, v); },
+    for (int i0 = j; i0 < n; i0 += groups) {
+      const int i = i0 + group;
+      const bool active = i < n;
+      group_dot<K>(
+          n, np2, active,
+          [&](int t, double(&v)[K]) { load_xf<K>(L + (size_t)i * n + t, nn, v); },
           [&](int t, double(&v)[K]) { load_xf<K>(L + (size_t)j * n + t, nn, v); }, c);
+      if (active && tid % G == 0) {
 #pragma unroll
-      for (int q = 0; q < K; ++q) c[q] = -c[q];
-      load_xf<K>(A + (size_t)i * n + j, nn, x);
-      xf_add_n<K>(x, c, s);
-      if (i == j)
-        for (int q = 0; q < K; ++q) piv[q] = s[q];
+        for (int q = 0; q < K; ++q) c[q] = -c[q];
+        load_xf<K>(A + (size_t)i * n + j, nn, x);
+        xf_add_c<K>(x, c, s);
+        store_xf<K>(S + i, n, s);
+      }
     }
     __syncthreads();
-    const bool pos = piv[0] > 0.0;
+    const bool pos = S[j] > 0.0;
     if (tid == 0) ok[j] = pos ? 1.0 : 0.0;
-    double d[K], ljj[K];
+    if (tid >= j && tid < n) {
+      double d[K], ljj[K];
 #pragma unroll
-    for (int q = 0; q < K; ++q) d[q] = pos ? piv[q] : (q == 0 ? 1.0 : 0.0);
-    xf_sqrt<K>(d, ljj);
-    if (active) {
-      const int i = tid;
-      xf_div<K>(s, ljj, c);
-#pragma unroll
-      for (int q = 0; q < K; ++q) c[q] = i == j ? ljj[q] : (i < j ? 0.0 : c[q]);
-      store_xf<K>(L + (size_t)i * n + j, nn, c);
+      for (int q = 0; q < K; ++q) d[q] = pos ? S[q * n + j] : (q == 0 ? 1.0 : 0.0);
+      xf_sqrt<K>(d, ljj);
+      if (tid == j) {
+        store_xf<K>(L + (size_t)j * n + j, nn, ljj);
+      } else {
+        load_xf<K>(S + tid, n, s);
+        xf_div<K>(s, ljj, c);
+        store_xf<K>(L + (size_t)tid * n + j, nn, c);
+      }
     }
     __syncthreads();
   }
 }
 
-// W = L^-1 R by forward substitution, one row at a time: thread col solves
-// column col, W[i, col] = (R[i, col] - sum_t L[i, t] W[t, col]) / L[i, i],
-// the sum over all t (rows t >= i of W still zero).  R = nullptr takes the
-// identity.  A thread reads and writes only its own column of W, so the
-// rows need no barrier between them; W is zeroed here and the block is
-// synchronized on return.
+// W = L^-1 R by forward substitution, one row at a time: for row i, a
+// group per column forms s = R[i, col] - sum_t L[i, t] W[t, col] over all
+// t (rows t >= i of W still zero) into S, then a thread per column writes
+// W[i, col] = s / L[i, i].  R = nullptr takes the identity.  W is zeroed
+// here and the block is synchronized on return.
 template <int K>
 __device__ void block_forward_rows_xf(const double* L, const double* R, double* W,
-                                      double* P, int n, int np2) {
+                                      double* S, int n, int np2) {
   const size_t nn = (size_t)n * n;
   const int tid = threadIdx.x;
+  const int G = group_width(np2);
+  const int group = tid / G, groups = blockDim.x / G;
   for (size_t e = tid; e < K * nn; e += blockDim.x) W[e] = 0.0;
   __syncthreads();
-  if (tid < n) {
-    const int col = tid;
-    double x[K], s[K], c[K], y[K];
-    for (int i = 0; i < n; ++i) {
-      matvec_xf<K>(
-          P, col, n, np2,
+  double x[K], s[K], c[K], y[K];
+  for (int i = 0; i < n; ++i) {
+    for (int c0 = 0; c0 < n; c0 += groups) {
+      const int col = c0 + group;
+      const bool active = col < n;
+      group_dot<K>(
+          n, np2, active,
           [&](int t, double(&v)[K]) { load_xf<K>(L + (size_t)i * n + t, nn, v); },
           [&](int t, double(&v)[K]) { load_xf<K>(W + (size_t)t * n + col, nn, v); }, c);
+      if (active && tid % G == 0) {
 #pragma unroll
-      for (int q = 0; q < K; ++q) c[q] = -c[q];
-      if (R != nullptr) {
-        load_xf<K>(R + (size_t)i * n + col, nn, x);
-      } else {
+        for (int q = 0; q < K; ++q) c[q] = -c[q];
+        if (R != nullptr) {
+          load_xf<K>(R + (size_t)i * n + col, nn, x);
+        } else {
 #pragma unroll
-        for (int q = 0; q < K; ++q) x[q] = (q == 0 && col == i) ? 1.0 : 0.0;
+          for (int q = 0; q < K; ++q) x[q] = (q == 0 && col == i) ? 1.0 : 0.0;
+        }
+        xf_add_c<K>(x, c, s);
+        store_xf<K>(S + col, n, s);
       }
-      xf_add_n<K>(x, c, s);
+    }
+    __syncthreads();
+    if (tid < n) {
+      load_xf<K>(S + tid, n, s);
       load_xf<K>(L + (size_t)i * n + i, nn, y);
       xf_div<K>(s, y, c);
-      store_xf<K>(W + (size_t)i * n + col, nn, c);
+      store_xf<K>(W + (size_t)i * n + tid, nn, c);
     }
+    __syncthreads();
   }
-  __syncthreads();
+}
+
+// Dynamic shared memory of a block: S, K n doubles (24.6 KB at n = 256,
+// k = 12, inside the default 48 KB).  L and its companion (W, or K7's X)
+// live in the global scratch at scratch + b * 2 K n^2.
+template <int K>
+inline size_t shared_bytes(int n) {
+  return sizeof(double) * (size_t)K * n;
 }
 
 }  // namespace clrs

@@ -262,6 +262,28 @@ __device__ __noinline__ void xf_mul_n(const double (&a)[K], const double (&b)[K]
   xf_mul<K>(a, b, r);
 }
 
+// The add and multiply of the long dependent chains (div, sqrt, and the dot
+// products of K5 and K7): inline up to K = 4, whose bodies are short, so
+// that no link of the chain makes an out-of-line call's round trip through
+// the stack; out of line above, one body per K.
+template <int K>
+__device__ __forceinline__ void xf_add_c(const double (&a)[K], const double (&b)[K],
+                                         double (&r)[K]) {
+  if constexpr (K <= 4)
+    xf_add<K>(a, b, r);
+  else
+    xf_add_n<K>(a, b, r);
+}
+
+template <int K>
+__device__ __forceinline__ void xf_mul_c(const double (&a)[K], const double (&b)[K],
+                                         double (&r)[K]) {
+  if constexpr (K <= 4)
+    xf_mul<K>(a, b, r);
+  else
+    xf_mul_n<K>(a, b, r);
+}
+
 // Newton steps of recip and sqrt: ceil(log2 k) + 1.
 __host__ __device__ constexpr int newton_steps(int k) {
   int c = 0;
@@ -280,12 +302,12 @@ __device__ void xf_recip(const double (&b)[K], double (&x)[K]) {
   }
   x[0] = 1.0 / (b[0] != 0.0 ? b[0] : 1.0);
   for (int it = 0; it < newton_steps(K); ++it) {
-    xf_mul_n<K>(b, x, t);
+    xf_mul_c<K>(b, x, t);
 #pragma unroll
     for (int q = 0; q < K; ++q) t[q] = -t[q];
-    xf_add_n<K>(one, t, e);
-    xf_mul_n<K>(x, e, t);
-    xf_add_n<K>(x, t, x);
+    xf_add_c<K>(one, t, e);
+    xf_mul_c<K>(x, e, t);
+    xf_add_c<K>(x, t, x);
   }
 }
 
@@ -294,13 +316,13 @@ template <int K>
 __device__ void xf_div(const double (&a)[K], const double (&b)[K], double (&out)[K]) {
   double r[K], q[K], t[K], res[K];
   xf_recip<K>(b, r);
-  xf_mul_n<K>(a, r, q);
-  xf_mul_n<K>(b, q, t);
+  xf_mul_c<K>(a, r, q);
+  xf_mul_c<K>(b, q, t);
 #pragma unroll
   for (int i = 0; i < K; ++i) t[i] = -t[i];
-  xf_add_n<K>(a, t, res);
-  xf_mul_n<K>(res, r, t);
-  xf_add_n<K>(q, t, out);
+  xf_add_c<K>(a, t, res);
+  xf_mul_c<K>(res, r, t);
+  xf_add_c<K>(q, t, out);
 }
 
 // sqrt by rsqrt Newton plus one refinement (_XOps.sqrt); a >= 0, 0
@@ -317,25 +339,25 @@ __device__ void xf_sqrt(const double (&a)[K], double (&out)[K]) {
   }
   x[0] = 1.0 / sqrt(safe[0]);
   for (int it = 0; it < newton_steps(K); ++it) {
-    xf_mul_n<K>(x, x, t);
-    xf_mul_n<K>(safe, t, u);
+    xf_mul_c<K>(x, x, t);
+    xf_mul_c<K>(safe, t, u);
 #pragma unroll
     for (int q = 0; q < K; ++q) u[q] = -u[q];
-    xf_add_n<K>(one, u, e);
-    xf_mul_n<K>(x, e, t);
+    xf_add_c<K>(one, u, e);
+    xf_mul_c<K>(x, e, t);
 #pragma unroll
     for (int q = 0; q < K; ++q) t[q] = 0.5 * t[q];
-    xf_add_n<K>(x, t, x);
+    xf_add_c<K>(x, t, x);
   }
-  xf_mul_n<K>(safe, x, s);
-  xf_mul_n<K>(s, s, t);
+  xf_mul_c<K>(safe, x, s);
+  xf_mul_c<K>(s, s, t);
 #pragma unroll
   for (int q = 0; q < K; ++q) t[q] = -t[q];
-  xf_add_n<K>(safe, t, e);
-  xf_mul_n<K>(e, x, t);
+  xf_add_c<K>(safe, t, e);
+  xf_mul_c<K>(e, x, t);
 #pragma unroll
   for (int q = 0; q < K; ++q) t[q] = 0.5 * t[q];
-  xf_add_n<K>(s, t, s);
+  xf_add_c<K>(s, t, s);
 #pragma unroll
   for (int q = 0; q < K; ++q) out[q] = pos ? s[q] : 0.0;
 }
@@ -353,23 +375,6 @@ __device__ __forceinline__ void store_xf(double* p, size_t limb_stride,
                                          const double (&x)[K]) {
 #pragma unroll
   for (int q = 0; q < K; ++q) p[q * limb_stride] = x[q];
-}
-
-// K-limb zero-padded halving tree over v[0..np2) (unit stride within a
-// limb; limbs limb_stride apart), in place (_XOps.sum_axis).  The caller
-// fills v[n..np2) with zeros first.
-template <int K>
-__device__ void xf_halving_sum(double* v, size_t limb_stride, int np2, double (&r)[K]) {
-  double x[K], y[K];
-  for (int half = np2 / 2; half >= 1; half /= 2) {
-    for (int t = 0; t < half; ++t) {
-      load_xf<K>(v + t, limb_stride, x);
-      load_xf<K>(v + t + half, limb_stride, y);
-      xf_add_n<K>(x, y, x);
-      store_xf<K>(v + t, limb_stride, x);
-    }
-  }
-  load_xf<K>(v, limb_stride, r);
 }
 
 }  // namespace clrs

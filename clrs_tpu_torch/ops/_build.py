@@ -46,9 +46,8 @@ _SIGNATURES = {
     "clrs_matmul_xf": [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
     # k, m, dm, w, okf, scratch, B, n, np2, stream
     "clrs_steplen_xf": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # k, op, a, lda, b, ldb, out, N, stream
-    "clrs_elemwise_xf": [_I, _I, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P,
-                         ctypes.c_longlong, _P],
+    # desc (20 int64: ops/cuda_xf._elemwise_plan), a, b, out, stream
+    "clrs_elemwise_xf": [ctypes.c_char_p, _P, _P, _P, _P],
     # a, out, okf, scratch, B, n, np2, stream
     "clrs_spd_inverse_dd_wide": [_P, _P, _P, _P, _I, _I, _I, _P],
 }

@@ -28,6 +28,7 @@ product tree in the low limbs, by design, as on the TPU.
 
 from __future__ import annotations
 
+import struct
 from typing import Tuple
 
 import torch
@@ -37,14 +38,16 @@ from clrs_tpu_torch.ops.cuda_dd import xf_spd_inverse_batched as _dd_spd_inverse
 from clrs_tpu_torch.ops.xfloat import (
     F64,
     XF,
+    _broadcast_shape,
+    _check_k,
     dd_add,
     fast_two_sum,
     two_prod,
 )
 
-# K5 and K7 give one thread to each row of a matrix; at k = 10..12 a thread
-# takes up to 255 registers, so a block holds at most 256 of them
-# (csrc/chol_xf.cuh: kMaxRows).
+# K5 and K7 finish each row of a matrix in a thread of its own; at
+# k = 10..12 a thread takes up to 255 registers, so a block holds at most
+# 256 of them (csrc/chol_xf.cuh: kMaxRows).
 MAX_ROWS = 256
 
 
@@ -56,8 +59,10 @@ def _check_cuda(name: str, *ts: torch.Tensor):
             raise ValueError(f"{name}: need float64 limbs, got {t.dtype}")
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on t's device (no Stream
+    object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _np2(n: int) -> int:
@@ -290,16 +295,14 @@ def spd_inverse_xf(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if k < 3 or n != n2:
         raise ValueError(f"spd_inverse_xf: need (B, k>=3, n, n), got {tuple(limbs.shape)}")
     if n > MAX_ROWS:
-        raise ValueError(f"spd_inverse_xf: n={n} > {MAX_ROWS} (one thread per row)")
+        raise ValueError(f"spd_inverse_xf: n={n} > {MAX_ROWS} (a thread per row)")
     limbs = limbs.contiguous()
-    np2 = _np2(n)
     out = torch.empty_like(limbs)
     okf = torch.empty((B, n), dtype=F64, device=limbs.device)
-    scratch = torch.empty((B * k * (2 * n * n + n * np2),), dtype=F64,
-                          device=limbs.device)
+    scratch = torch.empty((B * 2 * k * n * n,), dtype=F64, device=limbs.device)
     rc = _build.library().clrs_spd_inverse_xf(
         k, limbs.data_ptr(), out.data_ptr(), okf.data_ptr(), scratch.data_ptr(),
-        B, n, np2, _stream(limbs))
+        B, n, _np2(n), _stream(limbs))
     _build.check(rc, "clrs_spd_inverse_xf", k)
     spd_inverse_xf.launches += 1
     return out, torch.all(okf > 0.5, dim=1)
@@ -355,15 +358,14 @@ def steplen_sandwich_xf(m: torch.Tensor, dm: torch.Tensor
         raise ValueError(f"steplen_sandwich_xf: bad shapes {tuple(m.shape)} "
                          f"{tuple(dm.shape)}")
     if n > MAX_ROWS:
-        raise ValueError(f"steplen_sandwich_xf: n={n} > {MAX_ROWS} (one thread per row)")
+        raise ValueError(f"steplen_sandwich_xf: n={n} > {MAX_ROWS} (a thread per row)")
     m, dm = m.contiguous(), dm.contiguous()
-    np2 = _np2(n)
     w = torch.empty((B, n, n), dtype=F64, device=m.device)
     okf = torch.empty((B, n), dtype=F64, device=m.device)
-    scratch = torch.empty((B * k * (2 * n * n + n * np2),), dtype=F64, device=m.device)
+    scratch = torch.empty((B * 2 * k * n * n,), dtype=F64, device=m.device)
     rc = _build.library().clrs_steplen_xf(
         k, m.data_ptr(), dm.data_ptr(), w.data_ptr(), okf.data_ptr(), scratch.data_ptr(),
-        B, n, np2, _stream(m))
+        B, n, _np2(n), _stream(m))
     _build.check(rc, "clrs_steplen_xf", k)
     steplen_sandwich_xf.launches += 1
     return w, torch.all(okf > 0.5, dim=1)
@@ -377,32 +379,102 @@ steplen_sandwich_xf.launches = 0
 # ---------------------------------------------------------------------------
 
 _ELEMWISE_OPS = {"add": (0, xops.add), "mul": (1, xops.mul)}
+ELEMWISE_MAX_AXES = 4  # csrc/elemwise_xf.cu: kMaxAxes
 
 
 def elemwise_xf_torch(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version of K8: ``xops.add`` or ``xops.mul`` on the limb rows
-    of a, b (k, N) -> (k, N)."""
-    return torch.stack(_ELEMWISE_OPS[op][1](list(a), list(b)))
+    """Plain version of K8: op "add" or "mul" of the limb tensors a (ka,
+    *sa) and b (kb, *sb) -> (k, *shape), k = max(ka, kb), shape the
+    broadcast of sa and sb: both operands broadcast and zero-padded to k
+    limbs, as the reference pads them, then ``xops.add`` or ``xops.mul``."""
+    k = max(a.shape[0], b.shape[0])
+    _check_k(k)
+    shape = _broadcast_shape(a.shape[1:], b.shape[1:])
+
+    def limbs(x):
+        rows = [torch.broadcast_to(v, shape) for v in x.unbind(0)]
+        zero = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        return rows + [zero] * (k - len(rows))
+
+    return torch.stack(_ELEMWISE_OPS[op][1](limbs(a), limbs(b)))
+
+
+def _elemwise_plan(op: str, a: torch.Tensor, b: torch.Tensor):
+    """The operand description K8's C entry takes for op(a, b) (see
+    csrc/elemwise_xf.cu), the output shape and its element count.  Axes
+    of size 1 are dropped and neighbouring axes merged wherever both
+    operands step evenly across them, so operands of one shape laid out
+    alike take one axis.  Raises on what the kernel does not take."""
+    if op not in _ELEMWISE_OPS:
+        raise ValueError(f"elemwise_xf: unknown op {op!r}")
+    if a.dtype != F64 or b.dtype != F64 or a.get_device() != b.get_device():
+        raise ValueError(f"elemwise_xf: need float64 limbs on one CUDA device, got "
+                         f"{a.dtype} on {a.device} and {b.dtype} on {b.device}")
+    ka, kb = a.shape[0], b.shape[0]
+    k = max(ka, kb)
+    _check_k(k)
+    shape = tuple(_broadcast_shape(a.shape[1:], b.shape[1:]))
+
+    def strides(x):  # element strides along the output axes, 0 where broadcast
+        xs, st = x.shape[1:], x.stride()[1:]
+        off = len(shape) - len(xs)
+        return [st[i - off] if i >= off and xs[i - off] == d else 0
+                for i, d in enumerate(shape)]
+
+    dims, sa, sb = [], [], []
+    for d, x, y in zip(shape, strides(a), strides(b)):
+        if d == 1:
+            continue
+        if dims and sa[-1] == x * d and sb[-1] == y * d:
+            dims[-1] *= d
+            sa[-1], sb[-1] = x, y
+        else:
+            dims.append(d)
+            sa.append(x)
+            sb.append(y)
+    if len(dims) > ELEMWISE_MAX_AXES:
+        raise ValueError(f"elemwise_xf: {shape} takes {len(dims)} axes, the kernel "
+                         f"{ELEMWISE_MAX_AXES}")
+    dims, sa, sb = dims or [1], sa or [0], sb or [0]
+    pad = [1] * (ELEMWISE_MAX_AXES - len(dims))
+    zeros = [0] * len(pad)
+    N = 1
+    for d in dims:
+        N *= d
+    desc = ([k, _ELEMWISE_OPS[op][0], N, len(dims)] + pad + dims
+            + [ka, a.stride(0)] + zeros + sa + [kb, b.stride(0)] + zeros + sb)
+    return struct.pack("<20q", *desc), (k,) + shape, N
+
+
+_elemwise_plans = {}
 
 
 def elemwise_xf(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K8 wrapper: op "add" or "mul" of a, b (k, N) float64, k = 2..12,
-    each limb row contiguous -> (k, N)."""
-    if a.device.type == "cpu":
-        return elemwise_xf_torch(op, a, b)
-    _check_cuda("elemwise_xf", a, b)
-    if a.ndim != 2 or tuple(b.shape) != tuple(a.shape) or op not in _ELEMWISE_OPS:
-        raise ValueError(f"elemwise_xf: bad call {op} {tuple(a.shape)} {tuple(b.shape)}")
-    k, N = a.shape
-    out = torch.empty((k, N), dtype=F64, device=a.device)
-    if N == 0:
-        return out
-    a, b = (x if x.stride(1) == 1 or N == 1 else x.contiguous() for x in (a, b))
-    rc = _build.library().clrs_elemwise_xf(
-        k, _ELEMWISE_OPS[op][0], a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
-        out.data_ptr(), N, _stream(a))
-    _build.check(rc, "clrs_elemwise_xf", k)
-    elemwise_xf.launches += 1
+    """K8 wrapper: op "add" or "mul" of the float64 limb tensors a (ka,
+    *sa) and b (kb, *sb), k = max(ka, kb) = 2..12, read in place at their
+    own strides -> (k, *shape) contiguous, as elemwise_xf_torch.  One
+    launch; the operand description is computed once for each layout of
+    the pair and kept."""
+    dev = a.get_device()
+    if not a.is_cuda:
+        if a.device.type == "cpu" and b.device.type == "cpu":
+            return elemwise_xf_torch(op, a, b)
+        raise ValueError(f"elemwise_xf: unsupported devices {a.device}, {b.device}")
+    key = (op, a.shape, a.stride(), b.shape, b.stride(), a.dtype, b.dtype, dev,
+           b.get_device())
+    plan = _elemwise_plans.get(key)
+    if plan is None:
+        if len(_elemwise_plans) >= 4096:
+            _elemwise_plans.clear()
+        plan = _elemwise_plans[key] = _elemwise_plan(op, a, b)
+    desc, shape, N = plan
+    out = a.new_empty(shape)
+    if N:
+        rc = _build.library().clrs_elemwise_xf(desc, a.data_ptr(), b.data_ptr(),
+                                               out.data_ptr(), _stream(a))
+        if rc:
+            _build.check(rc, "clrs_elemwise_xf", shape[0])
+        elemwise_xf.launches += 1
     return out
 
 

@@ -541,23 +541,17 @@ def elemwise_cuda():
         _ELEMWISE_CUDA = old
 
 
+_elemwise_xf = None  # ops/cuda_xf.elemwise_xf, bound at first use (cuda_xf imports this module)
+
+
 def _elemwise_kernel(op: str, a: XF, b: XF) -> XF:
-    """a op b through K8: both operands broadcast to the common shape and
-    zero-padded to k = max(a.k, b.k) limbs (xfloat.py:732-738), one launch
-    on a CUDA tensor, the plain version on a CPU one."""
-    from clrs_tpu_torch.ops.cuda_xf import elemwise_xf
-
-    k = max(a.k, b.k)
-    _check_k(k)
-    shape = _broadcast_shape(a.shape, b.shape)
-
-    def rows(x: XF):
-        limbs = x.broadcast_to(shape).limbs.reshape(x.k, -1)
-        if x.k < k:
-            limbs = torch.cat([limbs, limbs.new_zeros((k - x.k, limbs.shape[1]))])
-        return limbs
-
-    return XF(elemwise_xf(op, rows(a), rows(b)).reshape((k,) + shape))
+    """a op b through K8, which broadcasts the operands and zero-pads them
+    to k = max(a.k, b.k) limbs in its loads (xfloat.py:732-738): one launch
+    on CUDA tensors, the plain version on CPU ones."""
+    global _elemwise_xf
+    if _elemwise_xf is None:
+        from clrs_tpu_torch.ops.cuda_xf import elemwise_xf as _elemwise_xf
+    return XF(_elemwise_xf(op, a.limbs, b.limbs))
 
 
 def xf_add(a: XF, b: XF) -> XF:

@@ -1,0 +1,150 @@
+"""Time the port's K5, K7 and K8 and both k=3 routes of config 1 in one
+source tree, so that two trees can be compared in turns on one card.
+
+    python clrs_tpu_torch/tools/kernel_turns.py TREE LABEL OUT.json
+
+TREE is the root of a checkout: its ``clrs_tpu_torch`` is imported and its
+kernels are built under TREE/build.  The inputs and timers are those of
+``chip_smoke.py`` in the checkout this script belongs to, whichever TREE
+it times.  Comparing two trees means running this script for each in
+turns in one call on one card (A, B, B, A) and comparing within the call.
+For each kernel case it records the median time of one call between two
+CUDA events (the host's call path included, as the solver meets it), the
+time per call over a run of back-to-back calls, and the device time per
+launch that torch.profiler reports; then config 1 (Delsarte dim 8, 2d=10)
+at k=3 on the all-kernels route (a full solve) and on the default route
+(the first 8 iterations): steady it/s and ms/iter by phase.  Inputs come
+from fixed seeds, so every turn sees the same data.  Needs a CUDA card.
+"""
+
+import json
+import pathlib
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
+import chip_smoke as smoke  # noqa: E402
+
+DEV = torch.device("cuda", 0)
+
+
+def device_ms(fn, word, count=20):
+    """Device time per launch of the kernels whose name holds word, and
+    the device launches of other kernels per call, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(count):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in prof.events() if e.device_type == DeviceType.CUDA and word in e.name]
+    others = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and word not in e.name]
+    us = sum(e.time_range.elapsed_us() for e in mine)
+    return (us / 1e3 / len(mine) if mine else None), len(others) / count
+
+
+def case(label_tree, rows, kernel, label, fn, reps=50, count=200):
+    one = smoke.median_ms(fn, reps)
+    many = smoke.many_ms(fn, max(5, min(count, int(20.0 / max(one, 0.05)))))
+    dev_ms, other_launches = device_ms(fn, kernel)
+    rows.append(dict(kernel=kernel, case=label, single_ms=one, many_ms=many,
+                     device_ms=dev_ms, other_launches_per_call=other_launches))
+    print(f"{label_tree:8s} {kernel:22s} {label:34s} single {one:9.4f} ms  "
+          f"many {many:9.4f} ms  device {dev_ms if dev_ms is None else round(dev_ms, 5)} ms  "
+          f"other launches/call {other_launches:.2f}", flush=True)
+
+
+def kernels(label_tree):
+    from clrs_tpu_torch.ops import cuda_xf
+    from clrs_tpu_torch.ops.xfloat import XF, elemwise_cuda, xf_add, xf_mul
+
+    rng = np.random.default_rng(0)
+    rows = []
+
+    def add(*args, **kwargs):
+        case(label_tree, rows, *args, **kwargs)
+
+    for k, ops in ((3, ("add", "mul")), (10, ("mul",))):
+        for shape in ((), (11,), (6, 6), (11, 11)):
+            a = smoke.rand_xf(rng, shape, k, DEV).reshape(k, -1)
+            b = smoke.rand_xf(rng, shape, k, DEV).reshape(k, -1)
+            for op in ops:
+                add("elemwise_xf_kernel", f"wrapper k={k} {op} {shape}",
+                    lambda op=op, a=a, b=b: cuda_xf.elemwise_xf(op, a, b))
+    for sa, sb in (((6, 6), (6, 6)), ((10, 1, 1), (10, 11, 11)), ((), (11,)), ((6, 1), (1, 6))):
+        a, b = XF(smoke.rand_xf(rng, sa, 3, DEV)), XF(smoke.rand_xf(rng, sb, 3, DEV))
+        for op, fn in (("add", xf_add), ("mul", xf_mul)):
+            def call(fn=fn, a=a, b=b):
+                with elemwise_cuda():
+                    fn(a, b)
+            add("elemwise_xf_kernel", f"xfloat k=3 {op} {sa}x{sb}", call)
+    for k, op in ((3, "add"), (12, "mul")):
+        a, b = smoke.rand_xf(rng, (1 << 20,), k, DEV), smoke.rand_xf(rng, (1 << 20,), k, DEV)
+        add("elemwise_xf_kernel", f"wrapper k={k} {op} wide 2^20",
+            lambda op=op, a=a, b=b: cuda_xf.elemwise_xf(op, a, b), reps=10, count=20)
+    for k, B, n, cond, label in ((3, 1, 11, 1e8, "S_j 1x11x11"), (3, 1, 10, 1e6, "Q 1x10x10"),
+                                 (10, 1, 11, 1e8, "S_j 1x11x11"),
+                                 (3, 64, 32, 1e10, "wide 64x32x32")):
+        a = smoke.spd_batch(rng, B, n, k, cond, DEV)
+        add("spd_inverse_xf_kernel", f"k={k} {label}",
+            lambda a=a: cuda_xf.spd_inverse_xf(a), reps=20, count=50)
+    for k, B, n, label in ((3, 1, 6, "1x6x6"), (3, 1, 5, "1x5x5"), (10, 1, 6, "1x6x6"),
+                           (3, 64, 32, "wide 64x32x32")):
+        m = smoke.spd_batch(rng, B, n, k, 1e6, DEV)
+        d = smoke.rand_xf(rng, (B, n, n), k, DEV).transpose(0, 1)
+        d = ((d + d.transpose(-1, -2)) / 2).contiguous()
+        add("steplen_xf_kernel", f"k={k} {label}",
+            lambda m=m, d=d: cuda_xf.steplen_sandwich_xf(m, d), reps=20, count=50)
+    return rows
+
+
+def route(label_tree, name, **kwargs):
+    from clrs_tpu_torch import delsarte_lp_bound
+    from clrs_tpu_torch.ops import cuda_xf
+
+    counted = (cuda_xf.elemwise_xf, cuda_xf.spd_inverse_xf, cuda_xf.steplen_sandwich_xf)
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.time()
+    bound, res = delsarte_lp_bound(8, 5, precision_k=3, device=DEV, omega_p=100.0,
+                                   omega_d=100.0, verbose=False, **kwargs)
+    torch.cuda.synchronize()
+    steady = (res.iterations - 2) / max(sum(res.timings.values()), 1e-12)
+    n = max(res.iterations - 2, 1)
+    out = dict(route=name, bound=bound, status=res.status, iterations=res.iterations,
+               wall_s=time.time() - t0, steady_it_per_s=steady,
+               phase_ms_per_iter={p: 1e3 * v / n for p, v in sorted(res.timings.items())},
+               launches_per_iter={f.__name__: f.launches / res.iterations for f in counted})
+    print(f"{label_tree:8s} route {name}: {res.status} {bound!r} in {res.iterations} "
+          f"iterations, steady {steady:.4f} it/s; ms/iter "
+          + ", ".join(f"{p}={v:.2f}" for p, v in out["phase_ms_per_iter"].items())
+          + f"; launches/iter {out['launches_per_iter']}", flush=True)
+    return out
+
+
+def main():
+    tree, label, out = sys.argv[1:4]
+    if not torch.cuda.is_available():
+        sys.exit("kernel_turns: no CUDA device")
+    sys.path.insert(0, tree)  # before this checkout: TREE's clrs_tpu_torch is the one timed
+    from clrs_tpu_torch.ops import _build
+
+    t0 = time.time()
+    _build.library()
+    result = dict(tree=tree, label=label, device=torch.cuda.get_device_name(0),
+                  build_s=time.time() - t0, kernels=kernels(label),
+                  routes=[route(label, "all-kernels", **smoke.ALL_KERNELS_ROUTE),
+                          route(label, "default (8 iterations)", maxiterations=8)])
+    with open(out, "w") as f:
+        json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """The port's CUDA kernels K1-K9 on the card, each bit for bit against its
 plain PyTorch version (the comparison that chip_smoke.py also makes at the
-main path's and at wide shapes).  These tests need an NVIDIA GPU and nvcc
+main path's and at wide shapes; K8 also on broadcast and mixed-limb
+operands, K5 and K7 at every shape of their dot products' halving tree).  These tests need an NVIDIA GPU and nvcc
 and skip elsewhere; the file imports no JAX, so it runs on the card's
 machine:  python -m pytest -m gpu tests/test_torch_cuda.py
 """
@@ -152,6 +153,71 @@ def test_elemwise_xf_kernel_bitwise(cuda, k, op):
     before = cuda_xf.elemwise_xf.launches
     assert bitwise(cuda_xf.elemwise_xf(op, a, b), cuda_xf.elemwise_xf_torch(op, a, b))
     assert cuda_xf.elemwise_xf.launches == before + 1
+
+
+def elemwise_operands(rng, k, dev):
+    """Broadcast, stride-0, transposed, sliced and mixed-limb operand pairs,
+    as xfloat hands them to K8."""
+    r = lambda shape, kk=k: rand_xf(rng, shape, kk).to(dev)  # noqa: E731
+    return [(r((10, 1, 1)), r((10, 11, 11))), (r(()), r((11,))), (r((6, 1)), r((1, 6))),
+            (r((1, 5)).expand(k, 4, 5), r((4, 5))),
+            (r((7, 9)).transpose(1, 2), r((9, 14))[:, :, ::2]),
+            (r((3, 3), max(2, k - 1)), r((3, 3))), (r((11,), 2), r((11, 11)))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", ALL_KS)
+def test_elemwise_xf_kernel_broadcast_mixed_k_bitwise(cuda, k):
+    """K8 reads broadcast, strided and shorter operands in place, one
+    launch per op, through the wrapper and through xfloat's switch."""
+    from clrs_tpu_torch.ops import xfloat as tx
+
+    for a, b in elemwise_operands(np.random.default_rng(310 + k), k, cuda):
+        for op, xf_op in (("add", tx.xf_add), ("mul", tx.xf_mul)):
+            before = cuda_xf.elemwise_xf.launches
+            assert bitwise(cuda_xf.elemwise_xf(op, a, b), cuda_xf.elemwise_xf_torch(op, a, b))
+            with tx.elemwise_cuda():
+                got = xf_op(tx.XF(a), tx.XF(b))
+            assert cuda_xf.elemwise_xf.launches == before + 2
+            assert bitwise(got.limbs, cuda_xf.elemwise_xf_torch(op, a, b))
+
+
+def bitwise_nan(a, b):
+    """Bitwise equal, NaNs in the same places (their sign bits are the
+    device's own)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and bitwise(a[~na], b[~nb])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3, 12])
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 64, 65])
+def test_row_kernels_tree_boundaries_bitwise(cuda, k, n):
+    """K5 and K7 at the sizes where the dot products' halving tree changes
+    shape (one term per lane, a group below a warp, a full warp, terms kept
+    in the lane): flags and every limb equal to the plain versions, the second
+    of two blocks indefinite.  The plain versions run on the CPU copies of
+    the inputs (bit for bit what they give on the card, in a fraction of
+    the time: at k=12 they are minutes of small launches there)."""
+    rng = np.random.default_rng(600 + 100 * k + n)
+
+    def blocks():
+        a = spd_batch(rng, 2, n, 1e6)
+        a = torch.cat([a, torch.zeros((2, k - 2, n, n), dtype=torch.float64)], dim=1)
+        a[1, 0, n // 2, n // 2] = -1.0
+        return a
+
+    a, m = blocks(), blocks()
+    d = rand_xf(rng, (2, n, n), k).transpose(0, 1)
+    d = ((d + d.transpose(-1, -2)) / 2).contiguous()
+    inv_p, ok_p = cuda_xf.spd_inverse_xf_torch(a)
+    w_p, okw_p = cuda_xf.steplen_sandwich_xf_torch(m, d)
+    a, m, d = a.to(cuda), m.to(cuda), d.to(cuda)
+    inv_k, ok_k = cuda_xf.spd_inverse_xf(a)
+    w_k, okw_k = cuda_xf.steplen_sandwich_xf(m, d)
+    assert ok_k.tolist() == ok_p.tolist() == [True, False]
+    assert okw_k.tolist() == okw_p.tolist() == [True, False]
+    assert bitwise_nan(inv_k.cpu(), inv_p) and bitwise_nan(w_k.cpu(), w_p)
 
 
 @pytest.mark.gpu

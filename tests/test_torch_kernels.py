@@ -650,6 +650,129 @@ def test_elemwise_gate_bitwise_at_k6():
     assert cuda_xf.elemwise_xf.launches == before  # CPU tensors: the plain version
 
 
+def elemwise_materialized(op, a, b):
+    """The path K8's operand description replaced, kept here to hold the
+    new plain version against: both limb tensors broadcast and copied to
+    (k, N) rows, zero limbs appended, the op on the rows, then reshaped."""
+    from clrs_tpu_torch.ops import xops
+
+    k = max(a.shape[0], b.shape[0])
+    shape = np.broadcast_shapes(a.shape[1:], b.shape[1:])
+
+    def rows(x):
+        r = TXF(x).broadcast_to(shape).limbs.reshape(x.shape[0], -1)
+        return torch.cat([r, r.new_zeros((k - x.shape[0], r.shape[1]))])
+
+    fn = xops.add if op == "add" else xops.mul
+    return torch.stack(fn(list(rows(a)), list(rows(b)))).reshape((k,) + shape)
+
+
+def elemwise_operands(rng, k):
+    """Operand pairs as the solver and its callers hand them to K8:
+    broadcast batches and scalars, rows against columns, stride-0
+    expansions, transposed and sliced views, mixed limb counts."""
+    r = lambda shape, kk=k: t(rand_xf(rng, shape, kk))  # noqa: E731
+    return [
+        (r((10, 1, 1)), r((10, 11, 11))),
+        (r(()), r((11,))),
+        (r((6, 1)), r((1, 6))),
+        (r((1, 5)).expand(k, 4, 5), r((4, 5))),
+        (r((7, 9)).transpose(1, 2), r((9, 14))[:, :, ::2]),
+        (r((3, 3), max(2, k - 1)), r((3, 3))),
+        (r((11,), 2), r((11, 11))),
+    ]
+
+
+@pytest.mark.parametrize("k", [2, 3, 5, 12])
+def test_elemwise_plain_operand_description_bitwise(k):
+    """K8's plain version takes each operand as it lies (broadcast, stride
+    0, its own limb count) and equals, bit for bit, the broadcast-copy-
+    and-pad path it replaces; so does xfloat's switch, on the CPU."""
+    from clrs_tpu_torch.ops import xfloat as tx
+
+    for a, b in elemwise_operands(np.random.default_rng(140 + k), k):
+        for op, xf_op in (("add", tx.xf_add), ("mul", tx.xf_mul)):
+            want = elemwise_materialized(op, a, b)
+            assert_bitwise(want.numpy(), cuda_xf.elemwise_xf_torch(op, a, b))
+            with tx.elemwise_cuda():
+                assert_bitwise(want.numpy(), xf_op(TXF(a), TXF(b)))
+
+
+def read_by_plan(desc, x, limbs, limb_stride, strides):
+    """The operand values K8 loads under its description: limb q of output
+    element e at x's storage + q * limb_stride + offset(e), the offset from
+    e's index over the (right-aligned) dims, limbs past the operand's own
+    as zeros; mirrors csrc/elemwise_xf.cu."""
+    import struct
+
+    d = struct.unpack("<20q", desc)
+    k, N, ndim, dims = d[0], d[2], d[3], d[4:8]
+    outer = 4 - ndim
+    rem, off = torch.arange(N), torch.zeros(N, dtype=torch.int64)
+    for ax in range(3, outer, -1):
+        off += (rem % dims[ax]) * strides[ax]
+        rem = rem // dims[ax]
+    off += rem * strides[outer]
+    flat = torch.as_strided(x, (int(off.max()) + (limbs - 1) * limb_stride + 1,), (1,),
+                            x.storage_offset())
+    got = [flat[q * limb_stride + off] for q in range(limbs)]
+    return torch.stack(got + [torch.zeros(N, dtype=x.dtype)] * (k - limbs))
+
+
+@pytest.mark.parametrize("k", [2, 7, 12])
+def test_elemwise_plan_reads_operands_in_place(k):
+    """The description K8's wrapper hands the kernel (limb counts, limb
+    strides, per-axis element strides after merging axes) addresses, in
+    the operands' own storage, exactly the broadcast and zero-padded limbs
+    of the plain version; equal layouts take one axis, and the plan is
+    made once per layout pair."""
+    import struct
+
+    for a, b in elemwise_operands(np.random.default_rng(150 + k), k):
+        for op in ("add", "mul"):
+            desc, shape, N = cuda_xf._elemwise_plan(op, a, b)
+            d = struct.unpack("<20q", desc)
+            kk = max(a.shape[0], b.shape[0])
+            assert (d[0], d[1], N) == (kk, op == "mul", int(np.prod(shape[1:])))
+            assert shape == (kk,) + tuple(np.broadcast_shapes(a.shape[1:], b.shape[1:]))
+            for x, at in ((a, 8), (b, 14)):
+                want = TXF(x).broadcast_to(shape[1:]).limbs.reshape(x.shape[0], -1)
+                want = torch.cat([want, want.new_zeros((kk - x.shape[0], N))])
+                got = read_by_plan(desc, x, d[at], d[at + 1], d[at + 2:at + 6])
+                assert_bitwise(want.numpy(), got)
+    x, y = t(rand_xf(np.random.default_rng(0), (6, 6), k)), t(rand_xf(np.random.default_rng(1), (6, 6), k))
+    assert struct.unpack("<20q", cuda_xf._elemwise_plan("add", x, y)[0])[3] == 1
+
+
+def test_elemwise_refusals():
+    """K8's wrapper raises on what its kernel does not take: other devices
+    or a device mix, non-float64 limbs, more than four axes that do not
+    merge, an unknown op, and a limb count the library holds no kernel
+    for."""
+    meta = torch.empty((3, 4), dtype=torch.float64, device="meta")
+    cpu = torch.zeros((3, 4), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        cuda_xf.elemwise_xf("add", meta, meta)
+    with pytest.raises(ValueError):
+        cuda_xf.elemwise_xf("add", cpu, meta)
+    with pytest.raises(ValueError):
+        cuda_xf._elemwise_plan("add", cpu, cpu.float())
+    with pytest.raises(ValueError):
+        cuda_xf._elemwise_plan("sub", cpu, cpu)
+    wide = torch.zeros((3, 2, 3, 2, 3, 2), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        cuda_xf._elemwise_plan("mul", wide, wide.transpose(1, 2))
+    assert struct_ndim(cuda_xf._elemwise_plan("mul", wide, wide)[0]) == 1
+    with pytest.raises(NotImplementedError):
+        cuda_xf._elemwise_plan("add", torch.zeros((13, 2), dtype=torch.float64), cpu)
+
+
+def struct_ndim(desc):
+    import struct
+
+    return struct.unpack("<20q", desc)[3]
+
+
 # ---------------------------------------------------------------------------
 # K9: dd SPD inverse, batch-minor layout
 # ---------------------------------------------------------------------------
