@@ -11,20 +11,23 @@ Phases (any failure raises, and the script exits non-zero):
      source, all at once) and prints the build seconds and ptxas's
      registers and spills of the k-limb kernels at k=3 and k=10;
   3. runs each kernel (K1 SPD inverse, K2 Schur pairs at k=2 and k,
-     K3 matmul, K4 k-limb matmul, K5 k-limb SPD inverse, K7 step-length
+     K3 and K4 matmul at k=2 and k >= 3, K5 k-limb SPD inverse, K7 step-length
      sandwich, K8 elementwise k-limb add and multiply, K9 batch-minor dd
      SPD inverse) against its plain PyTorch version on the card, at every
      Delsarte config-1 shape of the main path, K2, K4 and K5 at k = 3, 4,
      6, 10, K7 at k = 2, 3, 4, 6, 10, K8 at every k = 2..12 (and at k >= 5
      against xfloat's own add and multiply), K9 also against K1, and at
-     wide shapes; K8 also on broadcast operands read in place and on
+     wide shapes; K3 and K4 also on operands read in place (V.mT as A and
+     as B, a broadcast batch) at k = 2, 3, 4, 6, 10, 12; K8 also on
+     broadcast operands read in place and on
      operands of fewer limbs, K5 and K7 also at n = 1, 2, 31, 32, 33, 64,
      65 (every shape of their halving trees) at k = 3 and 12 with one
      indefinite block: limbs and flags must be bitwise equal; prints the
      kernel's median time of one call, its time per call over a run of
      back-to-back calls, the plain version's median time, and each call's
-     bound (bytes over 3.35 TB/s or FP64 operations over 34 TFLOP/s, the
-     larger);
+     bound (bytes over 3.35 TB/s or FP64 instructions over their
+     rate, 1.7e13 per second, an FMA counted as one and every exact
+     product as the FMA's 2, whatever form the kernel runs; the larger);
   4. solves the Delsarte kissing-number bound in dimension 8 at 2d=10 on
      the card at k=2 with every launch counter reset first: K1, K2 and K3
      must have launched, the bound must be 240 to 1e-9, and the run must
@@ -48,11 +51,11 @@ Phases (any failure raises, and the script exits non-zero):
      phase 5; prints both routes' steady it/s and ms/iter by phase side by
      side;
   8. profiles iterations 3-6 of phase 7's route with torch.profiler: the
-     device's busy share, the device time per launch of K8, K5 and K7,
-     launches per iteration by kernel name with copies apart, the aten ops
-     under K8's call path (a copy among them fails the phase), and the
-     step length's split between K7, the float64 Jacobi bound and
-     xf_min_eig_sym;
+     device's busy share, the device time per launch of K8, K5, K7, K4 and
+     K2, launches per iteration by kernel name with copies apart and the
+     copy launches in all, the aten ops under K8's and K3/K4's call paths
+     (a copy among them fails the phase), and the step length's split
+     between K7, the float64 Jacobi bound and xf_min_eig_sym;
   9. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} as the last line.
 The full record also goes to chiprun_out/chip_smoke.json.
@@ -76,7 +79,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                        "clrs_tpu/ops/pallas_dd.py:151"),
     "schur_pairs_dd": ("clrs_tpu_torch/csrc/schur_pairs.cu",
                        "clrs_tpu/ops/pallas_xf.py:591"),
-    "matmul_dd": ("clrs_tpu_torch/csrc/matmul_dd.cu", "clrs_tpu/ops/pallas_xf.py:359"),
+    "matmul_dd": ("clrs_tpu_torch/csrc/matmul_xf.cu", "clrs_tpu/ops/pallas_xf.py:359"),
     "schur_pairs_xf": ("clrs_tpu_torch/csrc/schur_pairs.cu",
                        "clrs_tpu/ops/pallas_xf.py:591"),
     "matmul_xf (K4, K6)": ("clrs_tpu_torch/csrc/matmul_xf.cu",
@@ -101,7 +104,9 @@ ALL_KERNELS_ROUTE = dict(use_cuda_inverse=True, use_cuda_steplength=True,
                          use_cuda_elemwise=True)
 LADDER = (3, 4, 6, 10)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP64_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores
+FP64_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores, an FMA counted as two
+# the FP64 instruction rate: adds, multiplies and fused multiply-adds, one each
+FP64_INSTR_PER_S = FP64_PER_S / 2
 SOLVE = dict(omega_p=100.0, omega_d=100.0, verbose=False)
 
 
@@ -115,12 +120,21 @@ def log(*a):
 
 
 class _Count:
-    """A stand-in float that counts the operations applied to it."""
+    """A stand-in float that counts the FP64 instructions applied to it.
+    An exact product (xfloat.two_prod, Dekker's splitting, 17 operations)
+    counts as the 2 of its fused multiply-add form (csrc/eft.cuh:
+    two_prod_fma), whichever form a kernel runs: a bound counts the least
+    the function needs.  Dekker's two splits of an exact product each
+    begin with a multiply by 2^27 + 1, which marks them."""
 
     n = 0
+    splits = 0
+    mark = None  # xfloat's split constant, 2^27 + 1
 
     def _op(self, other=None):
         _Count.n += 1
+        if isinstance(other, float) and other == _Count.mark:
+            _Count.splits += 1
         return self
 
     __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _op
@@ -128,18 +142,24 @@ class _Count:
     def __neg__(self):
         return self._op()
 
+    @classmethod
+    def instructions(cls, fn, k):
+        """FP64 instructions of fn on two k-limb stand-ins."""
+        from clrs_tpu_torch.ops import xfloat
+
+        cls.n, cls.splits, cls.mark = 0, 0, xfloat._SPLIT
+        fn([cls() for _ in range(k)], [cls() for _ in range(k)])
+        assert cls.splits % 2 == 0
+        return cls.n - (17 - 2) * (cls.splits // 2)
+
 
 def op_counts(k: int) -> dict:
-    """Double operations of one k-limb add, multiply, div and sqrt as the
-    kernels compute them (add and mul counted by running the plain
-    arithmetic on counting stand-ins)."""
+    """FP64 instructions of one k-limb add, multiply, div and sqrt (add and
+    mul counted by running the plain arithmetic on counting stand-ins,
+    every exact product as an FMA's 2)."""
     from clrs_tpu_torch.ops import xops
 
-    c = {}
-    for name, fn in (("add", xops.add), ("mul", xops.mul)):
-        _Count.n = 0
-        fn([_Count() for _ in range(k)], [_Count() for _ in range(k)])
-        c[name] = _Count.n
+    c = {"add": _Count.instructions(xops.add, k), "mul": _Count.instructions(xops.mul, k)}
     steps = max(1, int(np.ceil(np.log2(k))) + 1)
     recip = 1 + steps * (2 * c["mul"] + 2 * c["add"] + k)
     c["div"] = recip + 3 * c["mul"] + 2 * c["add"] + k
@@ -147,15 +167,21 @@ def op_counts(k: int) -> dict:
     return c
 
 
-def bound(nbytes: float, flops: float):
-    """The least time the card could take (ms), and what bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP64_PER_S
+def bound(nbytes: float, instructions: float):
+    """The least time the card could take (ms), and what bounds it: the
+    bytes over the memory rate, or the FP64 instructions over their
+    rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, instructions / FP64_INSTR_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def matmul_work(k, B, n, K, m, steps):
+def matmul_work(k, B, n, K, m, steps, Ba=None, Bb=None):
+    """K3/K4: bytes of A (Ba matrices, B where not broadcast), B (Bb) and
+    C, and steps multiply-adds per output."""
     c = op_counts(k)
-    return 8 * k * B * (n * K + K * m + n * m), B * n * m * steps * (c["mul"] + c["add"])
+    Ba, Bb = Ba or B, Bb or B
+    return (8 * k * (Ba * n * K + Bb * K * m + B * n * m),
+            B * n * m * steps * (c["mul"] + c["add"]))
 
 
 def schur_work(k, G, P2, T):
@@ -258,6 +284,22 @@ def spd_batch(rng, B, n, k, cond, dev):
             lo = rng.uniform(-0.5, 0.5, (n, n)) * np.spacing(np.abs(out[b, q - 1]))
             out[b, q] = (lo + lo.T) / 2
     return torch.from_numpy(out).to(dev)
+
+
+IN_PLACE_KS = (2, 3, 4, 6, 10, 12)
+
+
+def in_place_operands(rng, k, dev):
+    """K3/K4 operands as the solver hands them over, uncopied: (label,
+    (a, b), (B, n, K, m, matrices of a, matrices of b))."""
+    V = rand_xf(rng, (1, 6, 11), k, dev)
+    return (("V.mT as A (11,6)x(6,11)", (V.transpose(-1, -2), rand_xf(rng, (1, 6, 11), k, dev)),
+             (1, 11, 6, 11, 1, 1)),
+            ("V.mT as B (6,11)x(11,6)", (rand_xf(rng, (1, 6, 11), k, dev), V.transpose(-1, -2)),
+             (1, 6, 11, 6, 1, 1)),
+            ("broadcast (6,6)x3x(6,11)", (rand_xf(rng, (1, 6, 6), k, dev),
+                                          rand_xf(rng, (3, 6, 11), k, dev)),
+             (3, 6, 6, 11, 1, 3)))
 
 
 # config-1 products of _mm (B, n, K, m): pairings, weighted-A and trace-A
@@ -383,6 +425,17 @@ def check_kernels(dev, record, tree_futures):
         a, b = rand_xf(rng, (B, n, K), 2, dev), rand_xf(rng, (B, K, m), 2, dev)
         case("matmul_dd", 2, label, cuda_xf.dd_matmul, cuda_xf.dd_matmul_seq_torch,
              (a, b), matmul_work(2, B, n, K, m, K), 50 if main else 5, 3 if main else 1, main)
+
+    # K3 (k=2) and K4 on operands read in place: V.mT as A (compute_pairings)
+    # and as B (weighted_A_block), and a batch broadcast from one matrix
+    for k in IN_PLACE_KS:
+        name, kernel, plain = (("matmul_dd", cuda_xf.dd_matmul, cuda_xf.dd_matmul_seq_torch)
+                               if k == 2 else ("matmul_xf (K4, K6)", cuda_xf.matmul_xf,
+                                               cuda_xf.matmul_xf_torch))
+        for label, (a, b), (B, n, K, m, Ba, Bb) in in_place_operands(rng, k, dev):
+            steps = K if k == 2 else cuda_xf.padded_contraction(K)
+            case(name, k, label, kernel, plain, (a, b),
+                 matmul_work(k, B, n, K, m, steps, Ba, Bb), 50, 3 if k < 6 else 1, True)
 
     # K2, K4 and K5 at the ladder's k, at every config-1 shape
     for k in LADDER:
@@ -654,23 +707,27 @@ COPY_WORDS = ("copy", "Memcpy", "Memset", "CatArray", "cat_")
 
 
 RANGES = ("K8 call path", "alpha", "alpha: K7", "alpha: float64 Jacobi",
-          "alpha: xf_min_eig_sym")
+          "alpha: xf_min_eig_sym", "K3/K4 call path")
 
 
-def profile_all_kernels(dev, record, steady_it_s):
+def profile_all_kernels(dev, record, steady_it_s, check=True):
     """Phase 8: torch.profiler over iterations 3-6 of config 1 at k=3 on
     the all-kernels route.  Prints the device's busy time per iteration as
     a share of the window's wall time (which the profiler stretches) and of
     the unprofiled iteration of phase 7 (steady_it_s), the device time per
-    launch of K8, K5 and K7, launches per iteration by kernel name (copies
-    apart), the copies that K8's call path issued, and how the step length
-    (alpha) splits between K7, the float64 Jacobi bound and the scalar
-    groups' xf_min_eig_sym.  Those parts, each
-    K8 call and alpha are marked with record_function ranges while the
-    window is open (a few us per call)."""
+    launch of K8, K5, K7, K4 and K2, launches per iteration by kernel name
+    (copies apart) and the copy launches in all, the copies that K8's and
+    K3/K4's call paths made, and how the step length (alpha) splits
+    between K7, the float64 Jacobi bound and the scalar groups'
+    xf_min_eig_sym.  Those parts, each K8 call, each matmul and alpha are
+    marked with record_function ranges while the window is open (a few us
+    per call).  check: fail on a copy under those call paths and on a
+    range that was not entered as often as its kernel launched
+    (kernel_turns.py profiles other trees without it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from clrs_tpu_torch.core import kernels as core_kernels
     from clrs_tpu_torch.core import solver
     from clrs_tpu_torch.ops import xfloat
 
@@ -704,7 +761,8 @@ def profile_all_kernels(dev, record, steady_it_s):
                     for (owner, attr), label in zip(
                             ((xfloat, "_elemwise_kernel"), (solver, "compute_step_length"),
                              (solver, "steplen_sandwich_xf"), (solver, "jacobi_min_eig"),
-                             (solver, "xf_min_eig_sym")), RANGES):
+                             (solver, "xf_min_eig_sym"), (core_kernels, "xf_matmul_k")),
+                            RANGES):
                         ranged(owner, attr, label)
                     prof.start()
                     window["t0"] = time.perf_counter()
@@ -760,6 +818,10 @@ def profile_all_kernels(dev, record, steady_it_s):
         log(f"profile: {tag} {n / iters:.2f} launches/iter, device "
             + (f"{us / 1e3 / n:.5f} ms per launch" if n else "none"))
     copies = {name: v for name, v in kernels.items() if any(w in name for w in COPY_WORDS)}
+    copy_launches = sum(n for n, _ in copies.values()) / iters
+    log(f"profile: copy launches per iteration {copy_launches:.2f} in all; K4 "
+        f"{per_launch['K4']['launches_per_iter']:.2f} launches/iter at "
+        f"{per_launch['K4']['device_ms_per_launch'] or 0.0:.5f} ms of device time each")
     others = sorted(((v[0], name, v[1]) for name, v in kernels.items() if name not in copies),
                     reverse=True)
     log(f"profile: launches per iteration by kernel ({len(kernels)} names; copies apart):")
@@ -767,21 +829,23 @@ def profile_all_kernels(dev, record, steady_it_s):
         log(f"profile:   {n / iters:9.2f}  {us / 1e3 / iters:8.3f} ms/iter  {name[:100]}")
     for name, (n, us) in sorted(copies.items(), key=lambda kv: -kv[1][0]):
         log(f"profile:   copy {n / iters:9.2f}  {us / 1e3 / iters:8.3f} ms/iter  {name[:100]}")
-    # ops beneath K8's call path: none may copy
-    k8_ops = {}
-    for e in events:
-        if e.device_type != DeviceType.CPU or e.name == RANGES[0]:
-            continue
-        p = e.cpu_parent
-        while p is not None and p.name != RANGES[0]:
-            p = p.cpu_parent
-        if p is not None and e.name.startswith("aten::"):
-            k8_ops[e.name] = k8_ops.get(e.name, 0) + 1
-    k8_copies = {n: c for n, c in k8_ops.items()
-                 if any(w in n for w in ("copy", "cat", "clone", "contiguous"))}
-    log(f"profile: aten ops under K8's call path per iteration: "
-        + (", ".join(f"{n}={c / iters:.2f}" for n, c in sorted(k8_ops.items())) or "none")
-        + f"; copies {k8_copies or 'none'}")
+    # ops beneath K8's and the matmuls' call paths: none may copy
+    path_ops, path_copies = {}, {}
+    for path in (RANGES[0], RANGES[5]):
+        ops = path_ops[path] = {}
+        for e in events:
+            if e.device_type != DeviceType.CPU or e.name == path:
+                continue
+            p = e.cpu_parent
+            while p is not None and p.name != path:
+                p = p.cpu_parent
+            if p is not None and e.name.startswith("aten::"):
+                ops[e.name] = ops.get(e.name, 0) + 1
+        path_copies[path] = {n: c for n, c in ops.items()
+                             if any(w in n for w in ("copy", "cat", "clone", "contiguous"))}
+        log(f"profile: aten ops under the {path} per iteration: "
+            + (", ".join(f"{n}={c / iters:.2f}" for n, c in sorted(ops.items())) or "none")
+            + f"; copies {path_copies[path] or 'none'}")
     ranges = {}
     for e in events:  # the ranges' host time, and the device span each covered
         if e.device_type == DeviceType.CPU and e.name in RANGES:
@@ -796,17 +860,22 @@ def profile_all_kernels(dev, record, steady_it_s):
             f"{r['host_ms_per_iter']:8.3f} ms/iter, device span {r['device_span_ms_per_iter']:8.3f} "
             f"ms/iter")
     out.update(per_launch=per_launch, copies_per_iter={n: c / iters for n, (c, _) in copies.items()},
-               k8_call_path_aten_ops_per_iter={n: c / iters for n, c in k8_ops.items()},
+               copy_launches_per_iter=copy_launches,
+               call_path_aten_ops_per_iter={
+                   path: {n: c / iters for n, c in ops.items()} for path, ops in path_ops.items()},
                ranges=ranges,
                launches_per_iter={n: c / iters for n, (c, _) in kernels.items()})
     record["profile_all_kernels_k3"] = out
-    assert not k8_copies, f"K8's call path issued copies: {k8_copies}"
+    if not check:
+        return out
+    for path, found in path_copies.items():
+        assert not found, f"the {path} made copies: {found}"
     # a range that a refactor bypassed would read 0: each must be entered
     # every iteration, and the two around one kernel once per launch
     lost = [key for key in RANGES if ranges.get(key, {}).get("calls_per_iter", 0) < 1]
     assert not lost, f"profile ranges entered less than once per iteration: {lost}"
     if kernels:
-        for key, tag in ((RANGES[0], "K8"), (RANGES[2], "K7")):
+        for key, tag in ((RANGES[0], "K8"), (RANGES[2], "K7"), (RANGES[5], "K4")):
             assert ranges[key]["calls_per_iter"] == per_launch[tag]["launches_per_iter"], (
                 f"range {key!r}: {ranges[key]['calls_per_iter']} calls/iter against "
                 f"{per_launch[tag]['launches_per_iter']} {tag} launches/iter")
@@ -838,7 +907,8 @@ def solve_dim24(dev, record):
 
 def ptxas_report(text: str):
     """Registers, stack and spills of the k-limb kernels (and of the
-    out-of-line add and multiply of K5 and K7) at k=3, 10 and 12, and of
+    out-of-line add and multiply of K5 and K7) at k=3, 10 and 12, of the
+    matmul also at k=2 (K3), its 64-bit-index instances marked so, and of
     K9; K8's instances are named by op and by the dense form."""
     names = ("matmul_xf_kernel", "schur_pairs_kernel", "spd_inverse_xf_kernel",
              "steplen_xf_kernel", "elemwise_xf_kernel", "xf_add_n", "xf_mul_n")
@@ -847,8 +917,10 @@ def ptxas_report(text: str):
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             fn = m.group(1)
-            cur = next((f"{n} k={kk}" for n in names for kk in (3, 10, 12)
-                        if f"{n}ILi{kk}E" in fn), None)
+            cur = next((f"{n} k={kk}" for n in names for kk in (2, 3, 10, 12)
+                        if f"{n}ILi{kk}E" in fn and (kk > 2 or n == names[0])), None)
+            if cur and names[0] in fn and f"ILi{cur.split('=')[1]}Ex" in fn:
+                cur += " (64-bit index)"
             k8 = re.search(r"elemwise_xf_kernelILi\d+ELb([01])ELb([01])E", fn)
             if cur and k8:
                 cur += (" mul" if k8.group(1) == "1" else " add") + (

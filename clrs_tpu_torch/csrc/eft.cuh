@@ -8,9 +8,10 @@
 // operations in the same order, so a kernel and its plain version agree
 // bit for bit.
 //
-// Build with --fmad=false: a fused multiply-add would break Dekker's
+// Build with --fmad=false: a contracted multiply-add would break Dekker's
 // two_prod and change the cross terms of dd_mul, so every product below
-// must round on its own.  Division and sqrt are IEEE correctly rounded in
+// must round on its own; the one fused multiply-add is two_prod_fma's,
+// written out, whose (p, e) equals Dekker's.  Division and sqrt are IEEE correctly rounded in
 // double on the card (nvcc's defaults), as they are in PyTorch on the CPU;
 // the reciprocal-sqrt seed is 1.0 / sqrt(x), never rsqrt(), whose double
 // version is not correctly rounded.
@@ -44,6 +45,31 @@ __device__ __forceinline__ void two_prod(double a, double b, double& p, double& 
   e = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
 }
 
+// The same (p, e) in two instructions: the fused multiply-add rounds
+// a*b - p once, and that difference is a double.  Equal to Dekker's
+// two_prod, bit for bit and in the sign of a zero e (both give +0 for an
+// exact product), wherever Dekker's is exact: a and b zero or normal
+// with |a|, |b| < 2^996 (the
+// split's 2^27 + 1 multiple does not overflow), |a*b| < 2^1023, and
+// exponent(a) + exponent(b) >= -969, exponents as floor(log2 |x|) (e
+// and the split halves' products do not underflow); zeros of either
+// sign included.  Outside that range Dekker's e is inf, NaN or
+// inexact and this one is still a*b - p rounded once.  Only the matmul
+// (K3, and K4 at k <= 4) takes it, through the FMA flag of dd_mul and
+// xf_mul; every other kernel, and every plain version, keeps Dekker's.
+__device__ __forceinline__ void two_prod_fma(double a, double b, double& p, double& e) {
+  p = a * b;
+  e = __fma_rn(a, b, -p);
+}
+
+template <bool FMA>
+__device__ __forceinline__ void two_prod_t(double a, double b, double& p, double& e) {
+  if constexpr (FMA)
+    two_prod_fma(a, b, p, e);
+  else
+    two_prod(a, b, p, e);
+}
+
 // QD ieee_add (ops/xfloat._dd_add, pallas_dd._Ops.add).
 __device__ __forceinline__ void dd_add(double ah, double al, double bh, double bl,
                                        double& rh, double& rl) {
@@ -56,11 +82,13 @@ __device__ __forceinline__ void dd_add(double ah, double al, double bh, double b
   fast_two_sum(s1, s2, rh, rl);
 }
 
-// QD dd multiply (ops/xfloat._dd_mul, pallas_dd._Ops.mul).
+// QD dd multiply (ops/xfloat._dd_mul, pallas_dd._Ops.mul); FMA: the
+// exact product by two_prod_fma.
+template <bool FMA = false>
 __device__ __forceinline__ void dd_mul(double ah, double al, double bh, double bl,
                                        double& rh, double& rl) {
   double p, e;
-  two_prod(ah, bh, p, e);
+  two_prod_t<FMA>(ah, bh, p, e);
   e = e + (ah * bl + al * bh);
   fast_two_sum(p, e, rh, rl);
 }
@@ -198,11 +226,12 @@ __device__ __forceinline__ void fold_term(double (&v)[K], int o, double t) {
   push_error<K>(v, o + 1, g);
 }
 
-template <int K>
+// FMA: every exact product by two_prod_fma (the matmul's instance).
+template <int K, bool FMA = false>
 __device__ __forceinline__ void xf_mul(const double (&a)[K], const double (&b)[K],
                                        double (&r)[K]) {
   if constexpr (K == 2) {
-    dd_mul(a[0], a[1], b[0], b[1], r[0], r[1]);
+    dd_mul<FMA>(a[0], a[1], b[0], b[1], r[0], r[1]);
   } else {
     // Order o holds the products a[i] b[o-i] of order o and the errors of
     // the products of order o - 1; the reference lists, per order, the
@@ -214,7 +243,7 @@ __device__ __forceinline__ void xf_mul(const double (&a)[K], const double (&b)[K
     // orders K-1 and K
 #pragma unroll
     for (int i = 0; i <= K - 2; ++i) {
-      two_prod(a[i], b[K - 2 - i], p, e);
+      two_prod_t<FMA>(a[i], b[K - 2 - i], p, e);
       p_hi[i] = p;
       v[K - 1] = (i == 0) ? e : v[K - 1] + e;
     }
@@ -231,7 +260,7 @@ __device__ __forceinline__ void xf_mul(const double (&a)[K], const double (&b)[K
     for (int o = K - 2; o >= 1; --o) {
 #pragma unroll
       for (int i = 0; i <= o - 1; ++i) {
-        two_prod(a[i], b[o - 1 - i], p, e);
+        two_prod_t<FMA>(a[i], b[o - 1 - i], p, e);
         p_lo[i] = p;
         if (i == 0)
           v[o] = e;

@@ -2,7 +2,9 @@
 
 ``nvcc`` compiles every ``clrs_tpu_torch/csrc/*.cu`` (a plain C interface,
 no PyTorch headers) for ``sm_90a`` with ``--fmad=false`` (the error-free
-transforms must not be contracted into fused multiply-adds), one process
+transforms must not be contracted into fused multiply-adds; the one that
+is, the matmul's exact product ``eft.cuh:two_prod_fma``, is written out),
+one process
 per source, all started together, and links the objects into one shared
 library.  The library lands in ``build/clrs_tpu_torch/`` at the repository
 root, named by a hash of the sources and flags, so a changed source is
@@ -40,10 +42,10 @@ _SIGNATURES = {
     "clrs_spd_inverse_xf": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
     # k, a4, b4, hh, out, G, P2, T, stream
     "clrs_schur_pairs": [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
-    # a, b, c, B, n, K, m, stream
-    "clrs_matmul_dd": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
-    # k, a, b, c, B, n, K, Kp, m, stream
-    "clrs_matmul_xf": [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
+    # desc (20 int64: ops/cuda_xf._matmul_plan), a, b, c, stream
+    "clrs_matmul_xf": [ctypes.c_char_p, _P, _P, _P, _P],
+    # test-only (tests/test_torch_cuda.py): a, b, p, e, p (Dekker), e (Dekker), n, stream
+    "clrs_two_prod_pairs": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
     # k, m, dm, w, okf, scratch, B, n, np2, stream
     "clrs_steplen_xf": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # desc (20 int64: ops/cuda_xf._elemwise_plan), a, b, out, stream
@@ -102,6 +104,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    shutil.rmtree(tmp, ignore_errors=True)  # a failed build's, in this process
     tmp.mkdir()
     nvcc = _nvcc()
     objs = [tmp / (src.stem + ".o") for src in cu]

@@ -2,12 +2,13 @@
 
 K2 is ``csrc/schur_pairs.cu`` (replaces ``pallas_xf._schur_pairs_kernel_k``
 at every k): the elementwise Schur core w = ((a1 b1 + a2 b2) + (a3 b3 +
-a4 b4)) HH.  K3 is ``csrc/matmul_dd.cu`` (replaces
-``pallas_xf._matmul_kernel``): the batched dd matmul by sequential rank-1
-accumulation.  K4 is ``csrc/matmul_xf.cu`` (replaces
-``pallas_xf._matmul_kernel_k`` and its tiled form K6): the same at k >= 3,
-its contraction zero-padded to a multiple of 8 as the Pallas wrappers pad
-it.  K5 is ``csrc/spd_inverse_xf.cu`` (replaces
+a4 b4)) HH.  K3 and K4 are the k=2 and k >= 3 instances of
+``csrc/matmul_xf.cu``: the batched k-limb matmul by sequential rank-1
+accumulation, operands read in place.  K3 (replaces
+``pallas_xf._matmul_kernel``) runs the contraction as it is; K4 (replaces
+``pallas_xf._matmul_kernel_k`` and its tiled form K6) zero-pads it to a
+multiple of 8, as the Pallas wrappers pad it.  K5 is
+``csrc/spd_inverse_xf.cu`` (replaces
 ``pallas_xf._spd_inverse_kernel_k``): the batched SPD inverse at k >= 3.
 K7 is ``csrc/steplen_xf.cu`` (replaces
 ``pallas_xf._steplen_sandwich_kernel_k``): the step-length sandwich
@@ -22,8 +23,11 @@ kernel for a CUDA tensor (or raises), counting launches in its
 ``launches`` attribute.  The plain versions perform the kernels'
 operations in the kernels' order (K3 on ``xfloat``'s dd sequences, the
 others on ``ops/xops.py``, the kernels' own arithmetic), so the two agree
-bit for bit.  The sequential accumulations differ from ``xfloat.xf_matmul``'s
-product tree in the low limbs, by design, as on the TPU.
+bit for bit.  K3 and K4 at k <= 4 form their exact products by a fused
+multiply-add, their plain versions by Dekker's splitting: the same bits
+on the kernels' range (``csrc/eft.cuh``: two_prod_fma).  The sequential
+accumulations differ from ``xfloat.xf_matmul``'s product tree in the low
+limbs, by design, as on the TPU.
 """
 
 from __future__ import annotations
@@ -72,6 +76,41 @@ def _np2(n: int) -> int:
     return p
 
 
+def _merged_axes(shape, a_shape, a_strides, b_shape, b_strides):
+    """The axes K3/K4's and K8's kernels walk for two operands broadcast to
+    `shape` (operand axes right-aligned with it): (dims, element strides
+    of a, of b), a stride 0 where the operand is broadcast, axes of size 1
+    dropped and neighbouring axes merged wherever both operands step
+    evenly across them."""
+    def strides(xs, st):
+        off = len(shape) - len(xs)
+        return [st[i - off] if i >= off and xs[i - off] == d else 0
+                for i, d in enumerate(shape)]
+
+    dims, sa, sb = [], [], []
+    for d, x, y in zip(shape, strides(a_shape, a_strides), strides(b_shape, b_strides)):
+        if d == 1:
+            continue
+        if dims and sa[-1] == x * d and sb[-1] == y * d:
+            dims[-1] *= d
+            sa[-1], sb[-1] = x, y
+        else:
+            dims.append(d)
+            sa.append(x)
+            sb.append(y)
+    return dims, sa, sb
+
+
+def _cached_plan(plans: dict, key, make, *args):
+    """make(*args), kept in plans under key (emptied at 4096 layouts)."""
+    plan = plans.get(key)
+    if plan is None:
+        if len(plans) >= 4096:
+            plans.clear()
+        plan = plans[key] = make(*args)
+    return plan
+
+
 # ---------------------------------------------------------------------------
 # K2: Schur pairs core
 # ---------------------------------------------------------------------------
@@ -112,20 +151,31 @@ schur_pairs.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3: batched dd matmul
+# K3 and K4 (+K6): batched k-limb matmul, one kernel (csrc/matmul_xf.cu)
 # ---------------------------------------------------------------------------
+
+MATMUL_MAX_BATCH_AXES = 3  # csrc/matmul_xf.cu: kBatchAxes
+
+
+def _matmul_batch(a: torch.Tensor, b: torch.Tensor):
+    """The common batch shape of a (k, *ba, n, K) and b (k, *bb, K, m)."""
+    if a.ndim < 3 or b.ndim < 3 or a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"matmul: bad shapes {tuple(a.shape)} {tuple(b.shape)}")
+    return tuple(_broadcast_shape(a.shape[1:-2], b.shape[1:-2]))
 
 
 def dd_matmul_seq_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version of K3: a (2, B, n, K), b (2, B, K, m) -> (2, B, n, m),
-    C += a[:, r] (x) b[r, :] for r = 0..K-1 in order."""
-    _, B, n, K = a.shape
+    """Plain version of K3: a (2, *ba, n, K), b (2, *bb, K, m), any
+    strides, the batch axes broadcast -> (2, *batch, n, m), C += a[:, r]
+    (x) b[r, :] for r = 0..K-1 in order, on xfloat's dd sequences."""
+    batch = _matmul_batch(a, b)
+    n, K = a.shape[-2:]
     m = b.shape[-1]
-    ch = torch.zeros((B, n, m), dtype=F64, device=a.device)
+    ch = torch.zeros(batch + (n, m), dtype=F64, device=a.device)
     cl = torch.zeros_like(ch)
     for r in range(K):
-        ah, al = a[0, :, :, r:r + 1], a[1, :, :, r:r + 1]  # (B, n, 1)
-        bh, bl = b[0, :, r:r + 1, :], b[1, :, r:r + 1, :]  # (B, 1, m)
+        ah, al = a[0, ..., r:r + 1], a[1, ..., r:r + 1]  # (*ba, n, 1)
+        bh, bl = b[0, ..., r:r + 1, :], b[1, ..., r:r + 1, :]  # (*bb, 1, m)
         ph, pe = two_prod(ah, bh)
         plo = pe + (ah * bl + al * bh)
         ph, plo = fast_two_sum(ph, plo)
@@ -133,93 +183,150 @@ def dd_matmul_seq_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([ch, cl])
 
 
-def dd_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K3 wrapper (shapes as dd_matmul_seq_torch)."""
-    if a.device.type == "cpu":
-        return dd_matmul_seq_torch(a, b)
-    _check_cuda("dd_matmul", a, b)
-    two, B, n, K = a.shape
-    if two != 2 or tuple(b.shape[:3]) != (2, B, K):
-        raise ValueError(f"dd_matmul: bad shapes {tuple(a.shape)} {tuple(b.shape)}")
-    m = b.shape[-1]
-    a, b = a.contiguous(), b.contiguous()
-    c = torch.empty((2, B, n, m), dtype=F64, device=a.device)
-    rc = _build.library().clrs_matmul_dd(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), B, n, K, m, _stream(a))
-    _build.check(rc, "clrs_matmul_dd")
-    dd_matmul.launches += 1
-    return c
-
-
-dd_matmul.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# K4 (+K6): batched k-limb matmul
-# ---------------------------------------------------------------------------
-
-
 def padded_contraction(K: int) -> int:
-    """The Pallas wrappers' zero-padded contraction length: K rounded up
-    to a multiple of 8 (pallas_xf.py:351-356, 514-518, 1115)."""
+    """The Pallas wrappers' zero-padded contraction length at k >= 3: K
+    rounded up to a multiple of 8 (pallas_xf.py:351-356, 514-518, 1115)."""
     return (K + 7) // 8 * 8
 
 
 def matmul_xf_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: a (k, B, n, K), b (k, B, K, m) -> (k, B, n, m),
-    acc = add(acc, mul(a[:, r], b[r, :])) for r over the zero-padded
-    contraction in order."""
-    k, B, n, K = a.shape
+    """Plain version of K4: a (k, *ba, n, K), b (k, *bb, K, m), any
+    strides, the batch axes broadcast -> (k, *batch, n, m), acc = add(acc,
+    mul(a[:, r], b[r, :])) for r over the zero-padded contraction in
+    order."""
+    batch = _matmul_batch(a, b)
+    k, n, K = a.shape[0], a.shape[-2], a.shape[-1]
     m = b.shape[-1]
-    Kp = padded_contraction(K)
-    acc = [torch.zeros((B, n, m), dtype=F64, device=a.device) for _ in range(k)]
-    zero_a = torch.zeros((B, n, 1), dtype=F64, device=a.device)
-    zero_b = torch.zeros((B, 1, m), dtype=F64, device=a.device)
-    for r in range(Kp):
+    acc = [torch.zeros(batch + (n, m), dtype=F64, device=a.device) for _ in range(k)]
+    zero_a = torch.zeros(batch + (n, 1), dtype=F64, device=a.device)
+    zero_b = torch.zeros(batch + (1, m), dtype=F64, device=a.device)
+    for r in range(padded_contraction(K)):
         if r < K:
-            x = [a[q, :, :, r:r + 1] for q in range(k)]
-            y = [b[q, :, r:r + 1, :] for q in range(k)]
+            x = [a[q, ..., r:r + 1] for q in range(k)]
+            y = [b[q, ..., r:r + 1, :] for q in range(k)]
         else:
             x, y = [zero_a] * k, [zero_b] * k
         acc = xops.add(acc, xops.mul(x, y))
     return torch.stack(acc)
 
 
-def matmul_xf(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K4 wrapper (shapes as matmul_xf_torch), k >= 3."""
-    if a.device.type == "cpu":
-        return matmul_xf_torch(a, b)
-    _check_cuda("matmul_xf", a, b)
-    k, B, n, K = a.shape
-    if k < 3 or tuple(b.shape[:3]) != (k, B, K):
-        raise ValueError(f"matmul_xf: bad shapes {tuple(a.shape)} {tuple(b.shape)}")
+def _matmul_plan(a: torch.Tensor, b: torch.Tensor):
+    """The description csrc/matmul_xf.cu's C entry takes for a @ b (a (k,
+    *ba, n, K), b (k, *bb, K, m), read in place at their strides), the
+    output shape and its element count.  The batch axes are broadcast
+    (stride 0 where an operand has size 1 or lacks the axis), axes of
+    size 1 dropped and neighbouring axes merged wherever both operands
+    step evenly across them.  The contraction takes K steps at k=2 (K3)
+    and padded_contraction(K) at k >= 3 (K4).  Raises on what the kernel
+    does not take."""
+    if a.dtype != F64 or b.dtype != F64 or a.device != b.device:
+        raise ValueError(f"matmul: need float64 limbs on one CUDA device, got "
+                         f"{a.dtype} on {a.device} and {b.dtype} on {b.device}")
+    k = a.shape[0]
+    if b.shape[0] != k:
+        raise ValueError(f"matmul: limb counts {k} and {b.shape[0]}")
+    _check_k(k)
+    batch = _matmul_batch(a, b)
+    n, K = a.shape[-2:]
     m = b.shape[-1]
-    a, b = a.contiguous(), b.contiguous()
-    c = torch.empty((k, B, n, m), dtype=F64, device=a.device)
-    rc = _build.library().clrs_matmul_xf(
-        k, a.data_ptr(), b.data_ptr(), c.data_ptr(), B, n, K, padded_contraction(K), m,
-        _stream(a))
-    _build.check(rc, "clrs_matmul_xf", k)
-    matmul_xf.launches += 1
-    return c
+
+    dims, sa, sb = _merged_axes(batch, a.shape[1:-2], a.stride()[1:-2], b.shape[1:-2],
+                                b.stride()[1:-2])
+    if len(dims) > MATMUL_MAX_BATCH_AXES:
+        raise ValueError(f"matmul: batch {batch} takes {len(dims)} axes, the kernel "
+                         f"{MATMUL_MAX_BATCH_AXES}")
+    pad = MATMUL_MAX_BATCH_AXES - len(dims)
+    dims, sa, sb = [1] * pad + dims, [0] * pad + sa, [0] * pad + sb
+    steps = K if k == 2 else padded_contraction(K)
+    desc = ([k, steps, K, n, m] + dims
+            + [a.stride(0)] + sa + list(a.stride()[-2:])
+            + [b.stride(0)] + sb + list(b.stride()[-2:]))
+    N = n * m
+    for d in dims:
+        N *= d
+    return struct.pack("<20q", *desc), (k,) + batch + (n, m), N
 
 
+_matmul_plans = {}
+
+
+def _matmul(wrapper, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/matmul_xf.cu on a and b as they lie; the description is
+    computed once for each layout of the pair and kept."""
+    key = (a.shape, a.stride(), b.shape, b.stride(), a.dtype, b.dtype, a.get_device(),
+           b.get_device())
+    desc, shape, N = _cached_plan(_matmul_plans, key, _matmul_plan, a, b)
+    out = a.new_empty(shape)
+    if N:
+        rc = _build.library().clrs_matmul_xf(desc, a.data_ptr(), b.data_ptr(),
+                                             out.data_ptr(), _stream(a))
+        if rc:
+            _build.check(rc, "clrs_matmul_xf", shape[0])
+        wrapper.launches += 1
+    return out
+
+
+def _on_cpu(name: str, a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True for CPU operands (the plain version's), False for CUDA ones;
+    raises for other devices."""
+    if a.is_cuda:
+        return False
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return True
+    raise ValueError(f"{name}: unsupported devices {a.device}, {b.device}")
+
+
+_FMA_RANGE = """
+    On the card the exact products (at k <= 4) are formed by the fused
+    multiply-add (csrc/eft.cuh: two_prod_fma), on the CPU by Dekker's
+    splitting: the two give the same limbs, bit for bit, wherever every
+    pair of limbs x, y that the multiply takes exactly has |x|, |y| <
+    2^996, |x y| < 2^1023 and exponent(x) + exponent(y) >= -969 (zeros of
+    either sign included).  Outside that range the card's limbs differ
+    from the plain version's and from the JAX reference's: where the
+    split overflows the plain version gives NaN and the card a finite
+    product; where the error term underflows the card's is x y - p
+    rounded once and the plain version's may be inexact."""
+
+
+def dd_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K3 wrapper (shapes as dd_matmul_seq_torch): one launch of the k=2
+    instance of csrc/matmul_xf.cu, the operands read in place; the output
+    is a fresh contiguous (2, *batch, n, m)."""
+    if _on_cpu("dd_matmul", a, b):
+        return dd_matmul_seq_torch(a, b)
+    if a.shape[0] != 2:
+        raise ValueError(f"dd_matmul: need 2 limbs, got {tuple(a.shape)}")
+    return _matmul(dd_matmul, a, b)
+
+
+dd_matmul.__doc__ += _FMA_RANGE
+dd_matmul.launches = 0
+
+
+def matmul_xf(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4 wrapper (shapes as matmul_xf_torch), k >= 3: one launch of
+    csrc/matmul_xf.cu, the operands read in place; the output is a fresh
+    contiguous (k, *batch, n, m)."""
+    if _on_cpu("matmul_xf", a, b):
+        return matmul_xf_torch(a, b)
+    if a.shape[0] < 3:
+        raise ValueError(f"matmul_xf: need k >= 3 limbs, got {tuple(a.shape)}")
+    return _matmul(matmul_xf, a, b)
+
+
+matmul_xf.__doc__ += _FMA_RANGE
 matmul_xf.launches = 0
 
 
 def xf_matmul_k(a: XF, b: XF) -> XF:
-    """(..., n, K) x (..., K, m) through K3 (k=2) or K4 (k >= 3); leading
-    batch axes broadcast and are flattened into the kernel's batch."""
+    """(..., n, K) x (..., K, m) through K3 (k=2) or K4 (k >= 3); the
+    leading batch axes broadcast, and both operands are read where they
+    lie (transposed, sliced or broadcast views included)."""
     k = a.k
     if b.k != k:
         raise NotImplementedError(f"mixed limb counts {a.k} and {b.k}")
-    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
-    n, K = a.shape[-2:]
-    m = b.shape[-1]
-    al = torch.broadcast_to(a.limbs, (k,) + batch + (n, K)).reshape(k, -1, n, K)
-    bl = torch.broadcast_to(b.limbs, (k,) + batch + (K, m)).reshape(k, -1, K, m)
-    out = dd_matmul(al, bl) if k == 2 else matmul_xf(al, bl)
-    return XF(out.reshape((k,) + batch + (n, m)))
+    return XF((dd_matmul if k == 2 else matmul_xf)(a.limbs, b.limbs))
 
 
 # ---------------------------------------------------------------------------
@@ -415,23 +522,8 @@ def _elemwise_plan(op: str, a: torch.Tensor, b: torch.Tensor):
     _check_k(k)
     shape = tuple(_broadcast_shape(a.shape[1:], b.shape[1:]))
 
-    def strides(x):  # element strides along the output axes, 0 where broadcast
-        xs, st = x.shape[1:], x.stride()[1:]
-        off = len(shape) - len(xs)
-        return [st[i - off] if i >= off and xs[i - off] == d else 0
-                for i, d in enumerate(shape)]
-
-    dims, sa, sb = [], [], []
-    for d, x, y in zip(shape, strides(a), strides(b)):
-        if d == 1:
-            continue
-        if dims and sa[-1] == x * d and sb[-1] == y * d:
-            dims[-1] *= d
-            sa[-1], sb[-1] = x, y
-        else:
-            dims.append(d)
-            sa.append(x)
-            sb.append(y)
+    dims, sa, sb = _merged_axes(shape, a.shape[1:], a.stride()[1:], b.shape[1:],
+                                b.stride()[1:])
     if len(dims) > ELEMWISE_MAX_AXES:
         raise ValueError(f"elemwise_xf: {shape} takes {len(dims)} axes, the kernel "
                          f"{ELEMWISE_MAX_AXES}")
@@ -462,12 +554,7 @@ def elemwise_xf(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"elemwise_xf: unsupported devices {a.device}, {b.device}")
     key = (op, a.shape, a.stride(), b.shape, b.stride(), a.dtype, b.dtype, dev,
            b.get_device())
-    plan = _elemwise_plans.get(key)
-    if plan is None:
-        if len(_elemwise_plans) >= 4096:
-            _elemwise_plans.clear()
-        plan = _elemwise_plans[key] = _elemwise_plan(op, a, b)
-    desc, shape, N = plan
+    desc, shape, N = _cached_plan(_elemwise_plans, key, _elemwise_plan, op, a, b)
     out = a.new_empty(shape)
     if N:
         rc = _build.library().clrs_elemwise_xf(desc, a.data_ptr(), b.data_ptr(),

@@ -1,7 +1,7 @@
-"""Time the port's K5, K7 and K8 and both k=3 routes of config 1 in one
-source tree, so that two trees can be compared in turns on one card.
+"""Time the port's K3, K4, K5, K7 and K8 and both k=3 routes of config 1
+in one source tree, so that two trees can be compared in turns on one card.
 
-    python clrs_tpu_torch/tools/kernel_turns.py TREE LABEL OUT.json
+    python clrs_tpu_torch/tools/kernel_turns.py TREE LABEL OUT.json [--matmul]
 
 TREE is the root of a checkout: its ``clrs_tpu_torch`` is imported and its
 kernels are built under TREE/build.  The inputs and timers are those of
@@ -11,14 +11,28 @@ turns in one call on one card (A, B, B, A) and comparing within the call.
 For each kernel case it records the median time of one call between two
 CUDA events (the host's call path included, as the solver meets it), the
 time per call over a run of back-to-back calls, and the device time per
-launch that torch.profiler reports; then config 1 (Delsarte dim 8, 2d=10)
-at k=3 on the all-kernels route (a full solve) and on the default route
-(the first 8 iterations): steady it/s and ms/iter by phase.  Inputs come
-from fixed seeds, so every turn sees the same data.  Needs a CUDA card.
+launch that torch.profiler reports, with the other launches per call (a
+copy of an operand shows there); K3 (k=2) and K4 (k=3) at every
+main-path shape of ``chip_smoke.MATMUL_SHAPES`` and wide, through their
+wrappers, and on the solver's transposed and broadcast operands through
+``xf_matmul_k``; K4 at every k = 4..12 on config 1's (6,6)x(6,11) and
+(6,11)x(11,6) products.  It also records each matmul kernel's SASS as
+``cuobjdump`` reads it from TREE's library: instructions, FP64 adds,
+multiplies and FMAs, local-memory loads and stores, and registers and
+stack.  Then, unless ``--matmul`` is given (the matmul cases only),
+config 1 (Delsarte dim 8, 2d=10) at k=3 on the all-kernels route (a full
+solve) and on the default route (the first 8 iterations): steady it/s
+and ms/iter by phase; and chip_smoke's profile of iterations 3-6 of the
+all-kernels route (launches per iteration by kernel name, copy launches
+in all), without its checks.  Inputs come from fixed seeds, so every turn
+sees the same data.  Needs a CUDA card.
 """
 
+import collections
 import json
 import pathlib
+import re
+import subprocess
 import sys
 import time
 
@@ -61,7 +75,41 @@ def case(label_tree, rows, kernel, label, fn, reps=50, count=200):
           f"other launches/call {other_launches:.2f}", flush=True)
 
 
-def kernels(label_tree):
+def sass(library, word="matmul"):
+    """Per kernel function of the library whose name holds word: SASS
+    instructions by kind (cuobjdump -sass), and registers and stack
+    (cuobjdump -res-usage)."""
+    from clrs_tpu_torch.ops import _build
+
+    tool = str(pathlib.Path(_build._nvcc()).with_name("cuobjdump"))
+    runs = [subprocess.run([tool, flag, str(library)], capture_output=True, text=True)
+            for flag in ("-sass", "-res-usage")]
+    if any(r.returncode for r in runs):
+        return {"cuobjdump failed": [r.stderr[-2000:] for r in runs]}
+    out = collections.defaultdict(collections.Counter)
+    fn = None
+    for line in runs[0].stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if word in m.group(1) else None
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn and op:
+            kind = op.group(1).split(".")[0]
+            out[fn]["instructions"] += 1
+            if kind in ("DADD", "DMUL", "DFMA", "LDL", "STL"):
+                out[fn][kind] += 1
+    for line in runs[1].stdout.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = m.group(1)
+        r = re.search(r"REG:(\d+) STACK:(\d+)", line)
+        if fn in out and r:
+            out[fn]["registers"], out[fn]["stack"] = int(r.group(1)), int(r.group(2))
+    return {f: dict(c) for f, c in sorted(out.items())}
+
+
+def kernels(label_tree, matmul_only=False):
     from clrs_tpu_torch.ops import cuda_xf
     from clrs_tpu_torch.ops.xfloat import XF, elemwise_cuda, xf_add, xf_mul
 
@@ -70,6 +118,24 @@ def kernels(label_tree):
 
     def add(*args, **kwargs):
         case(label_tree, rows, *args, **kwargs)
+
+    # "matmul_" names K3's and K4's kernels in either tree
+    for k, kern, wide in ((2, cuda_xf.dd_matmul, ("wide 8x256x256x256", (8, 256, 256, 256))),
+                          (3, cuda_xf.matmul_xf, ("wide (1024,64)x(64,1024)", (1, 1024, 64, 1024)))):
+        for label, (B, n, K, m) in smoke.MATMUL_SHAPES + (wide,):
+            a, b = smoke.rand_xf(rng, (B, n, K), k, DEV), smoke.rand_xf(rng, (B, K, m), k, DEV)
+            reps, count = (10, 20) if label.startswith("wide") else (50, 200)
+            add("matmul_", f"wrapper k={k} {label}", lambda kern=kern, a=a, b=b: kern(a, b),
+                reps=reps, count=count)
+        for label, (a, b), _ in smoke.in_place_operands(rng, k, DEV):
+            add("matmul_", f"xf_matmul_k k={k} {label}",
+                lambda a=XF(a), b=XF(b): cuda_xf.xf_matmul_k(a, b))
+    for k in range(4, 13):
+        for label, (B, n, K, m) in smoke.MATMUL_SHAPES[:3:2]:
+            a, b = smoke.rand_xf(rng, (B, n, K), k, DEV), smoke.rand_xf(rng, (B, K, m), k, DEV)
+            add("matmul_", f"wrapper k={k} {label}", lambda a=a, b=b: cuda_xf.matmul_xf(a, b))
+    if matmul_only:
+        return rows
 
     for k, ops in ((3, ("add", "mul")), (10, ("mul",))):
         for shape in ((), (11,), (6, 6), (11, 11)):
@@ -109,7 +175,8 @@ def route(label_tree, name, **kwargs):
     from clrs_tpu_torch import delsarte_lp_bound
     from clrs_tpu_torch.ops import cuda_xf
 
-    counted = (cuda_xf.elemwise_xf, cuda_xf.spd_inverse_xf, cuda_xf.steplen_sandwich_xf)
+    counted = (cuda_xf.elemwise_xf, cuda_xf.spd_inverse_xf, cuda_xf.steplen_sandwich_xf,
+               cuda_xf.matmul_xf)
     for fn in counted:
         fn.launches = 0
     t0 = time.time()
@@ -131,6 +198,7 @@ def route(label_tree, name, **kwargs):
 
 def main():
     tree, label, out = sys.argv[1:4]
+    matmul_only = sys.argv[4:] == ["--matmul"]
     if not torch.cuda.is_available():
         sys.exit("kernel_turns: no CUDA device")
     sys.path.insert(0, tree)  # before this checkout: TREE's clrs_tpu_torch is the one timed
@@ -139,9 +207,15 @@ def main():
     t0 = time.time()
     _build.library()
     result = dict(tree=tree, label=label, device=torch.cuda.get_device_name(0),
-                  build_s=time.time() - t0, kernels=kernels(label),
-                  routes=[route(label, "all-kernels", **smoke.ALL_KERNELS_ROUTE),
-                          route(label, "default (8 iterations)", maxiterations=8)])
+                  build_s=time.time() - t0, sass=sass(_build.library_path()))
+    for fn, c in result["sass"].items():
+        print(f"{label:8s} sass {fn}: {c}", flush=True)
+    result["kernels"] = kernels(label, matmul_only)
+    if not matmul_only:
+        result["routes"] = [route(label, "all-kernels", **smoke.ALL_KERNELS_ROUTE),
+                            route(label, "default (8 iterations)", maxiterations=8)]
+        result["profile"] = smoke.profile_all_kernels(
+            DEV, {}, result["routes"][0]["steady_it_per_s"], check=False)
     with open(out, "w") as f:
         json.dump(result, f, indent=1)
 

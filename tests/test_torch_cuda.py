@@ -95,6 +95,164 @@ def test_matmul_xf_kernel_bitwise(cuda, k, B, n, K, m):
     assert cuda_xf.matmul_xf.launches == before + 1
 
 
+def matmul_operands(r):
+    """Operand pairs as the solver and other callers hand them to K3/K4,
+    r(shape) making a random limb tensor (k, *shape) on the device under
+    test: V.mT as A and as B (a transposed view), a sliced column block, a
+    batch broadcast from one matrix and from a missing axis, an expanded
+    (stride-0) batch, two batch axes and a batch of one, the sign
+    clusters.  tests/test_torch_kernels.py holds the plain versions and
+    the operand description to the same pairs on the CPU."""
+    V = r((1, 5, 11))
+    x = r((1, 4, 3))
+    return [
+        (V.transpose(-1, -2), r((1, 5, 11))),  # compute_pairings: V.mT @ ZVt
+        (r((1, 5, 11)), V.transpose(-1, -2)),  # weighted_A_block: U @ V.mT
+        (r((2, 6, 9))[..., 1:7], r((2, 6, 4))),  # sliced columns of A
+        (r((1, 3, 4)), r((3, 4, 5))),  # a batch of one against three
+        (r((3, 4)), r((2, 4, 3))[..., ::2]),  # no batch axis; strided B
+        (x.expand(x.shape[0], 5, 4, 3), r((5, 3, 2))),  # stride-0 batch
+        (r((2, 1, 3, 4)), r((3, 4, 2)).transpose(-1, -2).transpose(-1, -2)),
+        (r((10, 1, 1)), r((10, 1, 1))),  # the sign clusters
+    ]
+
+
+def matmul_kernel(k):
+    """K3 at k=2, K4 above: the wrapper and its plain version."""
+    if k == 2:
+        return cuda_xf.dd_matmul, cuda_xf.dd_matmul_seq_torch
+    return cuda_xf.matmul_xf, cuda_xf.matmul_xf_torch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2] + BUILT_KS)
+def test_matmul_kernels_in_place_operands_bitwise(cuda, k):
+    """K3 and K4 read transposed, sliced and broadcast operands where they
+    lie, one launch each, through the wrapper and through xf_matmul_k."""
+    from clrs_tpu_torch.ops.xfloat import XF
+
+    kernel, plain = matmul_kernel(k)
+    rng = np.random.default_rng(700 + k)
+    for a, b in matmul_operands(lambda shape: rand_xf(rng, shape, k).to(cuda)):
+        want = plain(a, b)
+        before = kernel.launches
+        assert bitwise(kernel(a, b), want)
+        assert bitwise(cuda_xf.xf_matmul_k(XF(a), XF(b)).limbs, want)
+        assert kernel.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 3, 4, 6, 10, 12])
+def test_matmul_kernels_chunk_and_block_boundaries(cuda, k):
+    """Output counts around a block of 32 threads (1, 31, 32, 33, 121,
+    129) and contractions around the kernel's chunks of products: K =
+    1..24 at k=2 (no padding), padded to 8, 16 and 24 steps above.  Then
+    one row of A outside the FMA TwoProd's range (dd_matmul's docstring):
+    scaled by 2^999, its limbs overflow Dekker's split, so the plain
+    version's entries of that row hold NaN; at k <= 4, where the card
+    forms the exact products by the FMA, the kernel's are finite and the
+    in-range result scaled by 2^999, bit for bit; above, where the card
+    splits too, NaN in the same places.  The other rows stay bitwise."""
+    kernel, plain = matmul_kernel(k)
+    rng = np.random.default_rng(800 + k)
+    for n, m in ((1, 1), (1, 31), (4, 8), (3, 11), (11, 11), (3, 43)):
+        for K in ((1, 7, 8, 9, 16, 17, 24) if k == 2 else (8, 9, 17, 24)):
+            a = rand_xf(rng, (1, n, K), k).to(cuda)
+            b = rand_xf(rng, (1, K, m), k).to(cuda)
+            assert bitwise(kernel(a, b), plain(a, b)), (n, K, m)
+    a, b = rand_xf(rng, (1, 3, 8), k).to(cuda), rand_xf(rng, (1, 8, 5), k).to(cuda)
+    big = a.clone()
+    big[:, :, 1] *= 2.0 ** 999
+    got, want = kernel(big, b), plain(big, b)
+    assert bitwise(got[:, :, ::2], want[:, :, ::2])
+    assert torch.isnan(want[:, :, 1]).any()
+    if k <= 4:
+        assert bitwise(got[:, :, 1], plain(a, b)[:, :, 1] * 2.0 ** 999)
+    else:
+        keep = ~torch.isnan(want)
+        assert torch.equal(torch.isnan(got), ~keep) and bitwise(got[keep], want[keep])
+
+
+def two_prod_inputs(rng, count):
+    """Operand pairs for the exact product: inside the range where
+    Dekker's two_prod is exact (csrc/eft.cuh: two_prod_fma), zeros of
+    either sign among them; past the split's overflow (|a| >= 2^997); and
+    past the underflow of the error term (exponents summing below -969)."""
+    def pairs(ea, eb):
+        mant = lambda: rng.uniform(1.0, 2.0, count) * rng.choice([-1.0, 1.0], count)  # noqa: E731
+        return np.ldexp(mant(), ea), np.ldexp(mant(), eb)
+
+    ea = rng.integers(-1000, 996, count)
+    eb = rng.integers(np.maximum(-1000, -969 - ea), np.minimum(996, 1022 - ea))
+    a, b = pairs(ea, eb)
+    a[:64], b[:64] = np.ldexp(rng.integers(-2 ** 20, 2 ** 20, 64), -10), 1.5  # exact
+    zeros = np.array([0.0, -0.0, 1.5, -1.5, 3e-300, -3e-300, 1e300, -1e300])
+    za, zb = np.meshgrid(zeros[:2], zeros)
+    inside = (np.concatenate([a, za.ravel(), zb.ravel()]),
+              np.concatenate([b, zb.ravel(), za.ravel()]))
+    ea = rng.integers(997, 1023, count)
+    overflow = pairs(ea, rng.integers(-60, 1, count) - (ea - 997))
+    ea = rng.integers(-1022, -60, count)
+    underflow = pairs(ea, np.maximum(-1022, rng.integers(-1040, -975, count) - ea))
+    return inside, overflow, underflow
+
+
+def exact_error(a, b, p):
+    """a*b - p rounded once (Python's Fraction to float rounds correctly),
+    and whether that is exact."""
+    from fractions import Fraction
+
+    d = [Fraction(x) * Fraction(y) - Fraction(z)
+         for x, y, z in zip(a.tolist(), b.tolist(), p.tolist())]
+    return np.array([float(v) for v in d]), np.array([Fraction(float(v)) == v for v in d])
+
+
+def check_two_prod(both, rng):
+    """The assertions of test_two_prod_fma_range on both(a, b) -> (p, e)
+    of the fused multiply-add and (p, e) of Dekker's splitting; returns
+    the share of underflowing pairs on which Dekker's error term misses."""
+    inside, overflow, underflow = two_prod_inputs(rng, 4096)
+    p, e, pd, ed = both(*inside)
+    assert np.array_equal(p.view(np.int64), pd.view(np.int64))
+    assert np.array_equal(e.view(np.int64), ed.view(np.int64))
+    assert not np.signbit(e[e == 0]).any()
+    want, exact = exact_error(*inside, p)
+    assert np.array_equal(e, want) and exact.all()
+    p, e, pd, ed = both(*overflow)
+    assert np.isfinite(p).all() and np.isnan(ed).all()
+    want, exact = exact_error(*overflow, p)
+    assert np.array_equal(e, want) and exact.all()
+    p, e, pd, ed = both(*underflow)
+    assert np.array_equal(e, exact_error(*underflow, p)[0])
+    return float(np.mean(ed != e))
+
+
+@pytest.mark.gpu
+def test_two_prod_fma_range(cuda):
+    """The matmul's exact product by the fused multiply-add equals Dekker's
+    two_prod bit for bit, zero signs included (+0 for an exact product),
+    on the range where Dekker's is exact, and p + e is a*b there.  Outside
+    it: where the split overflows, Dekker's error term is NaN and the
+    FMA's still exact; where the error term underflows, the FMA's is a*b
+    - p rounded once and Dekker's misses it on some pairs (the share is
+    printed)."""
+    from clrs_tpu_torch.ops import _build
+
+    def both(a, b):
+        a, b = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+        out = [torch.empty_like(a) for _ in range(4)]
+        rc = _build.library().clrs_two_prod_pairs(
+            a.data_ptr(), b.data_ptr(), *(o.data_ptr() for o in out), a.numel(),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        return [o.cpu().numpy() for o in out]
+
+    missed = check_two_prod(both, np.random.default_rng(900))
+    print(f"underflow: Dekker's error term differs from the FMA's on {missed:.3f} of pairs")
+    assert missed > 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", BUILT_KS)
 def test_schur_pairs_xf_kernel_bitwise(cuda, k):

@@ -30,6 +30,7 @@ from clrs_tpu_torch.core import kernels as tk
 from clrs_tpu_torch.ops import cuda_dd, cuda_xf
 from clrs_tpu_torch.ops.xfloat import XF as TXF
 
+from test_torch_cuda import matmul_operands as cuda_matmul_operands
 from test_torch_linalg import spd_dd
 from test_torch_xfloat import assert_bitwise, rand_dd, rand_xf
 
@@ -359,23 +360,33 @@ def test_xops_match_pallas_xops(k, monkeypatch):
         assert_limbs_bitwise(xo.sum_axis(jlist(a), axis), xops.sum_axis(tlist(a), axis))
 
 
-@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("k", (2,) + KS)
 def test_matmul_and_schur_k_plain_match_xops_replay(k):
-    """The plain K4 and K2 are the Pallas kernel bodies replayed with
+    """The plain K3/K4 and K2 are the Pallas kernel bodies replayed with
     _XOps, bit for bit: K4 accumulates add(acc, mul(a[:, r], b[r, :])) over
-    the contraction zero-padded to 8 (pallas_xf.py:489-493, 514-518), K2
-    forms ((p1 + p2) + (p3 + p4)) * HH (pallas_xf.py:605-614)."""
+    the contraction zero-padded to 8 (pallas_xf.py:489-493, 514-518), K3
+    (k=2, xfloat's dd sequences written out) the same over the contraction
+    as it is, with no padding: so one kernel source serves both, its step
+    count an argument; K2 forms ((p1 + p2) + (p3 + p4)) * HH
+    (pallas_xf.py:605-614)."""
     from clrs_tpu.ops.pallas_xf import _XOps
+    from clrs_tpu_torch.ops import xops
 
     rng = np.random.default_rng(30 + k)
     xo = _XOps(False, k)
     a, b = rand_xf(rng, (2, 3, 5), k), rand_xf(rng, (2, 5, 4), k)
-    ap = np.pad(a, ((0, 0),) * 3 + ((0, 3),))
-    bp = np.pad(b, ((0, 0),) * 2 + ((0, 3), (0, 0)))
+    steps = 5 if k == 2 else 8
+    ap = np.pad(a, ((0, 0),) * 3 + ((0, steps - 5),))
+    bp = np.pad(b, ((0, 0),) * 2 + ((0, steps - 5), (0, 0)))
     acc = xo.zeros_like(jnp.zeros((2, 3, 4)))
-    for r in range(8):
+    mine = [torch.zeros((2, 3, 4), dtype=torch.float64)] * k
+    for r in range(steps):
         acc = xo.add(acc, xo.mul(jlist(ap[:, :, :, r:r + 1]), jlist(bp[:, :, r:r + 1, :])))
-    assert_limbs_bitwise(acc, list(cuda_xf.matmul_xf_torch(t(a), t(b))))
+        mine = xops.add(mine, xops.mul(tlist(ap[:, :, :, r:r + 1]),
+                                       tlist(bp[:, :, r:r + 1, :])))
+    plain = cuda_xf.dd_matmul_seq_torch if k == 2 else cuda_xf.matmul_xf_torch
+    assert_limbs_bitwise(acc, list(plain(t(a), t(b))))
+    assert_limbs_bitwise(acc, mine)
     a4, b4 = rand_xf(rng, (2, 3, 4, 5, 5), k), rand_xf(rng, (2, 3, 4, 5, 5), k)
     hh = rand_xf(rng, (2, 5, 5), k, positive=True)
     p = [xo.mul(jlist(a4[:, :, :, i]), jlist(b4[:, :, :, i])) for i in range(4)]
@@ -771,6 +782,129 @@ def struct_ndim(desc):
     import struct
 
     return struct.unpack("<20q", desc)[3]
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4: operands read in place
+# ---------------------------------------------------------------------------
+
+
+def batch_broadcast(x, batch):
+    """The limb tensor x (k, *bx, rows, cols) broadcast to (k, *batch,
+    rows, cols), a view."""
+    x = x.reshape(x.shape[:1] + (1,) * (len(batch) + 3 - x.ndim) + x.shape[1:])
+    return torch.broadcast_to(x, x.shape[:1] + batch + x.shape[-2:])
+
+
+def matmul_materialized(a, b):
+    """The path the matmul's operand description replaced, kept here to
+    hold the new one against: both limb tensors broadcast to the common
+    batch, copied contiguous and flattened to one batch axis, the plain
+    version on the copies, the output reshaped back."""
+    k = a.shape[0]
+    batch = tuple(np.broadcast_shapes(a.shape[1:-2], b.shape[1:-2]))
+    (n, K), m = a.shape[-2:], b.shape[-1]
+    al = batch_broadcast(a, batch).contiguous().reshape(k, -1, n, K)
+    bl = batch_broadcast(b, batch).contiguous().reshape(k, -1, K, m)
+    plain = cuda_xf.dd_matmul_seq_torch if k == 2 else cuda_xf.matmul_xf_torch
+    return plain(al, bl).reshape((k,) + batch + (n, m))
+
+
+def matmul_operands(rng, k):
+    """test_torch_cuda.matmul_operands on the CPU."""
+    return cuda_matmul_operands(lambda shape: t(rand_xf(rng, shape, k)))
+
+
+def read_matmul_plan(desc, x, which):
+    """The limbs the kernel loads for operand `which` (0: A, 1: B) under
+    its description, at every (batch, row, column) of the operand's
+    broadcast shape: x's storage at limb_stride * q + the batch, row and
+    column offsets; mirrors csrc/matmul_xf.cu."""
+    import struct
+
+    d = struct.unpack("<20q", desc)
+    k, Kc, n, m, dims = d[0], d[2], d[3], d[4], d[5:8]
+    ls, bst, rs, cs = d[8 + 6 * which], d[9 + 6 * which:12 + 6 * which], \
+        d[12 + 6 * which], d[13 + 6 * which]
+    rows, cols = (n, Kc) if which == 0 else (Kc, m)
+    idx = torch.zeros(dims + (rows, cols), dtype=torch.int64)
+    for ax, (dim, st) in enumerate(zip(dims, bst)):
+        shape = [1] * 5
+        shape[ax] = dim
+        idx = idx + (torch.arange(dim) * st).reshape(shape)
+    idx = idx + (torch.arange(rows) * rs)[:, None] + torch.arange(cols) * cs
+    flat = torch.as_strided(x, (int(idx.max()) + (k - 1) * ls + 1,), (1,),
+                            x.storage_offset())
+    return torch.stack([flat[q * ls + idx] for q in range(k)])
+
+
+@pytest.mark.parametrize("k", [2, 3, 12])
+def test_matmul_plan_reads_operands_in_place(k):
+    """The description K3's and K4's wrappers hand the kernel (limb
+    strides, batch strides with 0 where broadcast, row and column
+    strides, after merging the batch axes) addresses, in the operands' own
+    storage, exactly the broadcast operands; the step count is K at k=2
+    and K padded to 8 above; the output is the broadcast batch."""
+    import struct
+
+    for a, b in matmul_operands(np.random.default_rng(160 + k), k):
+        desc, shape, N = cuda_xf._matmul_plan(a, b)
+        d = struct.unpack("<20q", desc)
+        batch = tuple(np.broadcast_shapes(a.shape[1:-2], b.shape[1:-2]))
+        K = a.shape[-1]
+        assert d[:5] == (k, K if k == 2 else cuda_xf.padded_contraction(K), K,
+                         a.shape[-2], b.shape[-1])
+        assert shape == (k,) + batch + (a.shape[-2], b.shape[-1])
+        assert N == int(np.prod(shape[1:])) and int(np.prod(d[5:8])) == int(np.prod(batch))
+        for which, x in enumerate((a, b)):
+            want = batch_broadcast(x, batch)
+            got = read_matmul_plan(desc, x, which)
+            assert_bitwise(want.reshape(got.shape).numpy(), got)
+    x = t(rand_xf(np.random.default_rng(0), (4, 6, 6), k))
+    assert struct.unpack("<20q", cuda_xf._matmul_plan(x, x)[0])[5:8] == (1, 1, 4)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_matmul_plain_in_place_operands_bitwise(k):
+    """K3's and K4's plain versions take the operands as they lie
+    (transposed, sliced, broadcast batches) and give, bit for bit, what
+    they give on broadcast contiguous copies; so does xf_matmul_k, which
+    now hands its operands over uncopied, on V.mT as the solver calls it."""
+    from clrs_tpu_torch.ops.xfloat import XF
+
+    for a, b in matmul_operands(np.random.default_rng(170 + k), k):
+        want = matmul_materialized(a, b)
+        plain = cuda_xf.dd_matmul_seq_torch if k == 2 else cuda_xf.matmul_xf_torch
+        assert_bitwise(want.numpy(), plain(a, b))
+        assert_bitwise(want.numpy(), cuda_xf.xf_matmul_k(XF(a), XF(b)))
+
+
+def test_matmul_plan_refusals():
+    """The matmul's description raises on what its kernel does not take:
+    a device mix, non-float64 limbs, unequal limb counts or contraction
+    lengths, batches that do not broadcast, more than three batch axes
+    that do not merge, and a limb count the library holds no kernel for."""
+    cpu = torch.zeros((3, 2, 4, 4), dtype=torch.float64)
+    meta = torch.empty((3, 2, 4, 4), dtype=torch.float64, device="meta")
+    for a, b in ((cpu, meta), (cpu, cpu.float()), (cpu, cpu[:2]), (cpu, cpu[..., :3, :]),
+                 (cpu, torch.zeros((3, 3, 4, 4), dtype=torch.float64))):
+        with pytest.raises(ValueError):
+            cuda_xf._matmul_plan(a, b)
+    with pytest.raises(ValueError):
+        cuda_xf.matmul_xf(cpu, meta)
+    wide = torch.zeros((3, 2, 3, 2, 3, 2, 2), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        cuda_xf._matmul_plan(wide, wide.transpose(1, 3))
+    assert cuda_xf._matmul_plan(wide, wide)[0][40:64] == struct_pack(1, 1, 36)
+    with pytest.raises(NotImplementedError):
+        cuda_xf._matmul_plan(torch.zeros((13, 2, 2), dtype=torch.float64),
+                             torch.zeros((13, 2, 2), dtype=torch.float64))
+
+
+def struct_pack(*v):
+    import struct
+
+    return struct.pack(f"<{len(v)}q", *v)
 
 
 # ---------------------------------------------------------------------------
