@@ -9,13 +9,17 @@ Phases (any failure raises, and the script exits non-zero):
      need no card);
   2. builds the hand-written kernels (clrs_tpu_torch/csrc, one nvcc per
      source, all at once) and prints the build seconds and ptxas's
-     registers and spills of the k-limb kernels at k=3 and k=10;
-  3. runs each kernel (K1 SPD inverse, K2 Schur pairs at k=2 and k,
+     registers and spills of the k-limb kernels at k=3, 10 and 12, of the
+     matmul and the SPD inverse also at k=2 (K3, K1);
+  3. runs each kernel (K1 SPD inverse, the k=2 instance of K5's kernel,
+     also at n = 257 and 1024, K2 Schur pairs at k=2 and k,
      K3 and K4 matmul at k=2 and k >= 3, K5 k-limb SPD inverse, K7 step-length
      sandwich, K8 elementwise k-limb add and multiply, K9 batch-minor dd
      SPD inverse) against its plain PyTorch version on the card, at every
      Delsarte config-1 shape of the main path, K2, K4 and K5 at k = 3, 4,
-     6, 10, K7 at k = 2, 3, 4, 6, 10, K8 at every k = 2..12 (and at k >= 5
+     6, 10, K7 at k = 2, 3, 4, 6, 10 (first the iteration's one launch
+     over both sides' 6x6 and 5x5 blocks, then each size alone), K8 at
+     every k = 2..12 (and at k >= 5
      against xfloat's own add and multiply), K9 also against K1, and at
      wide shapes; K3 and K4 also on operands read in place (V.mT as A and
      as B, a broadcast batch) at k = 2, 3, 4, 6, 10, 12; K8 also on
@@ -45,7 +49,8 @@ Phases (any failure raises, and the script exits non-zero):
      1e-3;
   7. solves config 1 at k=3 on the all-kernels route (use_cuda_inverse,
      use_cuda_steplength, use_cuda_elemwise), counters reset: K2, K4, K5,
-     K7 (4 per iteration) and K8 must have launched and K1, K3 and K9 must
+     K7 (one launch per iteration) and K8 must have launched and K1, K3
+     and K9 must
      not; the run must follow the CPU port on the same route as in phase 5
      and end `optimal` with the bound 240 to 1e-12 within 2 iterations of
      phase 5; prints both routes' steady it/s and ms/iter by phase side by
@@ -55,7 +60,10 @@ Phases (any failure raises, and the script exits non-zero):
      K2, launches per iteration by kernel name with copies apart and the
      copy launches in all, the aten ops under K8's and K3/K4's call paths
      (a copy among them fails the phase), and the step length's split
-     between K7, the float64 Jacobi bound and xf_min_eig_sym;
+     between K7, the float64 Jacobi bound and xf_min_eig_sym; then the
+     decomposition phase of iteration 3 of config 1 at k=2 for K1's
+     device time per launch (K1 and K5 told apart by the template
+     instance in the kernel's name);
   9. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} as the last line.
 The full record also goes to chiprun_out/chip_smoke.json.
@@ -75,7 +83,7 @@ import numpy as np
 import torch
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
-    "spd_inverse_dd": ("clrs_tpu_torch/csrc/spd_inverse_dd.cu",
+    "spd_inverse_dd": ("clrs_tpu_torch/csrc/spd_inverse_xf.cu",
                        "clrs_tpu/ops/pallas_dd.py:151"),
     "schur_pairs_dd": ("clrs_tpu_torch/csrc/schur_pairs.cu",
                        "clrs_tpu/ops/pallas_xf.py:591"),
@@ -161,8 +169,8 @@ def op_counts(k: int) -> dict:
 
     c = {"add": _Count.instructions(xops.add, k), "mul": _Count.instructions(xops.mul, k)}
     steps = max(1, int(np.ceil(np.log2(k))) + 1)
-    recip = 1 + steps * (2 * c["mul"] + 2 * c["add"] + k)
-    c["div"] = recip + 3 * c["mul"] + 2 * c["add"] + k
+    c["recip"] = 1 + steps * (2 * c["mul"] + 2 * c["add"] + k)
+    c["div"] = c["recip"] + 3 * c["mul"] + 2 * c["add"] + k
     c["sqrt"] = 2 + (steps + 1) * (3 * c["mul"] + 2 * c["add"] + 2 * k)
     return c
 
@@ -192,18 +200,21 @@ def schur_work(k, G, P2, T):
 
 def _chol_solve_ops(k, n):
     """Operations of the Cholesky and one forward substitution of n rows
-    (K5, K7), each matvec through the halving tree."""
+    (K1, K5, K7), each matvec through the halving tree, the reciprocal of
+    each diagonal entry of L taken once and every div by it the five
+    operations that follow (csrc/eft.cuh: xf_div_recip)."""
     c = op_counts(k)
     np2 = 1 << max(n - 1, 0).bit_length()
     matvec = n * c["mul"] + (np2 - 1) * c["add"] + k + c["add"]
-    chol = n * (n * matvec + c["sqrt"] + n * c["div"])
-    solve = n * n * (matvec + c["div"])
-    return chol, solve, matvec
+    div = c["div"] - c["recip"]
+    chol = n * (n * matvec + c["sqrt"] + c["recip"] + n * div)
+    solve = n * n * (matvec + div)
+    return chol, solve, matvec, div
 
 
 def spd_inverse_work(k, B, n):
     c = op_counts(k)
-    chol, solve, _ = _chol_solve_ops(k, n)
+    chol, solve, _, _ = _chol_solve_ops(k, n)
     wtw = n * n * n * (c["mul"] + c["add"])
     return 8 * B * (2 * k * n * n + n), B * (chol + solve + wtw)
 
@@ -212,9 +223,8 @@ def steplen_work(k, B, n):
     """K7: K5's Cholesky and row solve, then a column solve of n^2 entries
     (a matvec and a div each, the masks n^2 k products) and the plain
     output add; reads M and dM, writes W and the flags."""
-    c = op_counts(k)
-    chol, solve, matvec = _chol_solve_ops(k, n)
-    cols = n * n * (matvec + c["div"] + n * k) + n * n
+    chol, solve, matvec, div = _chol_solve_ops(k, n)
+    cols = n * n * (matvec + div + n * k) + n * n
     return 8 * B * (2 * k * n * n + n * n + n), B * (chol + solve + cols)
 
 
@@ -361,13 +371,16 @@ def check_kernels(dev, record, tree_futures):
     rows = []
 
     def case(name, k, label, kernel, plain, args, work, reps, plain_reps, main,
-             plain_ms=None):
+             plain_ms=None, view=None):
+        """view: applied to both outputs before they are compared (not timed)."""
         out_k = kernel(*args)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out_p = plain(*args)
         end.record()
         torch.cuda.synchronize()
+        if view is not None:
+            out_k, out_p = view(out_k), view(out_p)
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
         ok = outs_p[1] if len(outs_p) > 1 else None
@@ -397,8 +410,9 @@ def check_kernels(dev, record, tree_futures):
             f"({bound_by})")
         return row
 
-    # K1 at config-1 shapes, then wide: 256 blocks of 64x64 at cond ~1e10,
-    # one of them indefinite
+    # K1 (the k=2 instance of K5's kernel) at config-1 shapes, then wide:
+    # 256 blocks of 64x64 at cond ~1e10, one of them indefinite, and one
+    # block of 257 and of 1024 rows (the threads finish more than a row each)
     for label, (B, n, cond) in INVERSE_SHAPES:
         a = spd_batch(rng, B, n, 2, cond, dev)
         case("spd_inverse_dd", 2, label, cuda_dd.dd_spd_inverse,
@@ -408,6 +422,10 @@ def check_kernels(dev, record, tree_futures):
     row = case("spd_inverse_dd", 2, "wide 256x64x64 (1 indefinite)", cuda_dd.dd_spd_inverse,
                cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, 256, 64), 5, 1, False)
     assert row["flags"][7] is False, "K1: the indefinite block was not flagged"
+    for n in (257, 1024):
+        a = spd_batch(rng, 1, n, 2, 1e4, dev)
+        case("spd_inverse_dd", 2, f"1x{n}x{n}", cuda_dd.dd_spd_inverse,
+             cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, 1, n), 3, 0, False)
 
     # K2 at k=2: the main cluster has m=1 (one pair) and T = K*rmax = 11;
     # the ten sign clusters go as one group of G=10 with T=1; wide P^2=36
@@ -474,7 +492,27 @@ def check_kernels(dev, record, tree_futures):
         d = rand_xf(rng, (B, n, n), k, dev).transpose(0, 1)
         return m, (d + d.transpose(-1, -2)) / 2
 
+    def flat(groups):  # W and flags of every group, as one float64 vector
+        return torch.cat([w.reshape(-1) for w, _ in groups] + [ok.double() for _, ok in groups])
+
     for k in STEPLEN_LADDER:
+        # the iteration's one launch: X's and Y's 6x6 and 5x5 blocks, each
+        # a (k, n, n) view read in place, dM a transposed one
+        groups = []
+        for n in (6, 5, 6, 5):
+            m, d = sandwich_inputs(1, n, k, 1e6)
+            groups.append(([m[0]], [d[0].transpose(-1, -2)]))
+        work = [steplen_work(k, 1, n) for n in (6, 5, 6, 5)]
+        row = case("steplen_xf", k, "iteration X, Y x (1x6x6, 1x5x5)",
+                   cuda_xf.steplen_sandwich_xf_groups,
+                   lambda g: [cuda_xf.steplen_sandwich_xf_torch(torch.stack(ms), torch.stack(ds))
+                              for ms, ds in g],
+                   (groups,), tuple(map(sum, zip(*work))), 20, 1, True, view=flat)
+        per_size = flat([cuda_xf.steplen_sandwich_xf(torch.stack(ms), torch.stack(ds))
+                         for ms, ds in groups])
+        assert bits_equal(per_size, flat(cuda_xf.steplen_sandwich_xf_groups(groups))), \
+            f"steplen_xf k={k}: one launch differs from a launch per size"
+        row["equals_per_size_launches"] = True
         for label, (B, n) in (("1x6x6", (1, 6)), ("1x5x5", (1, 5))):
             case("steplen_xf", k, label, cuda_xf.steplen_sandwich_xf,
                  cuda_xf.steplen_sandwich_xf_torch, sandwich_inputs(B, n, k, 1e6),
@@ -682,8 +720,8 @@ def solve_all_kernels(dev, record, cpu_future, default):
         dev, record, 3, cpu_future, None, 1e-12, "optimal",
         ("schur_pairs", "matmul_xf", "spd_inverse_xf", "steplen_xf", "elemwise_xf"),
         route=ALL_KERNELS_ROUTE, tag="config1 k=3 all-kernels")
-    # two block-size groups (6x6, 5x5) for X and for Y in every iteration
-    assert launches["steplen_xf"] == 4 * res.iterations, launches["steplen_xf"]
+    # X's and Y's 6x6 and 5x5 blocks, all in one launch every iteration
+    assert launches["steplen_xf"] == res.iterations, launches["steplen_xf"]
     assert abs(res.iterations - default.iterations) <= 2, (res.iterations, default.iterations)
     assert default.status == "optimal"
     steady = {}
@@ -737,7 +775,9 @@ def profile_all_kernels(dev, record, steady_it_s, check=True):
     originals = {}
 
     def ranged(owner, attr, label):
-        fn = getattr(owner, attr)
+        fn = getattr(owner, attr, None)
+        if fn is None:  # an older tree that kernel_turns.py profiles: the range stays out
+            return
         originals[(owner, attr)] = fn
 
         def run(*args, **kwargs):
@@ -759,8 +799,8 @@ def profile_all_kernels(dev, record, steady_it_s, check=True):
                 torch.cuda.synchronize()
                 if count[0] == first:
                     for (owner, attr), label in zip(
-                            ((xfloat, "_elemwise_kernel"), (solver, "compute_step_length"),
-                             (solver, "steplen_sandwich_xf"), (solver, "jacobi_min_eig"),
+                            ((xfloat, "_elemwise_kernel"), (solver, "compute_step_lengths"),
+                             (solver, "steplen_sandwich_xf_groups"), (solver, "jacobi_min_eig"),
                              (solver, "xf_min_eig_sym"), (core_kernels, "xf_matmul_k")),
                             RANGES):
                         ranged(owner, attr, label)
@@ -811,8 +851,9 @@ def profile_all_kernels(dev, record, steady_it_s, check=True):
     for tag, word in (("K8", "elemwise_xf_kernel"), ("K5", "spd_inverse_xf_kernel"),
                       ("K7", "steplen_xf_kernel"), ("K4", "matmul_xf_kernel"),
                       ("K2", "schur_pairs_kernel")):
-        n = sum(c for name, (c, _) in kernels.items() if word in name)
-        us = sum(u for name, (_, u) in kernels.items() if word in name)
+        mine = [v for name, v in kernels.items() if word in name
+                and (tag != "K5" or spd_inverse_limbs(name) >= 3)]
+        n, us = sum(c for c, _ in mine), sum(u for _, u in mine)
         per_launch[tag] = dict(launches_per_iter=n / iters,
                                device_ms_per_launch=us / 1e3 / n if n else None)
         log(f"profile: {tag} {n / iters:.2f} launches/iter, device "
@@ -882,6 +923,66 @@ def profile_all_kernels(dev, record, steady_it_s, check=True):
     return out
 
 
+def spd_inverse_limbs(name: str) -> int:
+    """The limb count of the csrc/spd_inverse_xf.cu instance that a
+    profiler kernel name (demangled or not) names, 0 for another kernel:
+    2 is K1, 3 and above K5."""
+    m = re.search(r"spd_inverse_xf_kernel(?:<|ILi)(\d+)", name)
+    return int(m.group(1)) if m else 0
+
+
+def profile_k1(dev, record):
+    """Phase 8, K1: torch.profiler over the decomposition phase of
+    iteration 3 of config 1 at k=2 (the default route, where K1 computes
+    S_j^-1 and Q^-1): K1's launches there and its device time per launch,
+    by the k=2 instance of spd_inverse_xf_kernel in the kernel names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from clrs_tpu_torch.core import solver
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    make_phases = solver.make_ipm_phases
+    count = [0]
+
+    def phases_with_window(problem, cfg):
+        phases = make_phases(problem, cfg)
+        decomp = phases["decomp"]
+
+        def windowed(*args):
+            count[0] += 1
+            if count[0] != 3:
+                return decomp(*args)
+            torch.cuda.synchronize()
+            prof.start()
+            try:
+                out = decomp(*args)
+                torch.cuda.synchronize()
+            finally:
+                prof.stop()
+            return out
+
+        return dict(phases, decomp=windowed)
+
+    solver.make_ipm_phases = phases_with_window
+    try:
+        solve(8, 5, 2, dev, dict(maxiterations=3))
+    finally:
+        solver.make_ipm_phases = make_phases
+    assert count[0] >= 3, "the K1 profile window did not open"
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and spd_inverse_limbs(e.name) == 2]
+    out = dict(launches=len(us), device_ms_per_launch=sum(us) / 1e3 / len(us) if us else None,
+               device_ms=[u / 1e3 for u in us])
+    each = ", ".join(f"{u / 1e3:.5f}" for u in us)
+    log(f"profile (config1 k=2, decomposition of iteration 3): K1 {len(us)} launches, device "
+        + (f"{out['device_ms_per_launch']:.5f} ms per launch ({each})" if us else "none"))
+    record["profile_k1_k2"] = out
+    if prof.events() and any(e.device_type == DeviceType.CUDA for e in prof.events()):
+        assert us, "K1 did not run in the decomposition of config 1 at k=2"
+    return out
+
+
 def solve_dim24(dev, record):
     """Phase 6: the dimension-24 kissing bound (Leech lattice) on the card."""
     from clrs_tpu_torch import delsarte_lp_bound
@@ -908,8 +1009,9 @@ def solve_dim24(dev, record):
 def ptxas_report(text: str):
     """Registers, stack and spills of the k-limb kernels (and of the
     out-of-line add and multiply of K5 and K7) at k=3, 10 and 12, of the
-    matmul also at k=2 (K3), its 64-bit-index instances marked so, and of
-    K9; K8's instances are named by op and by the dense form."""
+    matmul and the SPD inverse also at k=2 (K3, K1), the matmul's
+    64-bit-index instances marked so, and of K9; K8's instances are named
+    by op and by the dense form."""
     names = ("matmul_xf_kernel", "schur_pairs_kernel", "spd_inverse_xf_kernel",
              "steplen_xf_kernel", "elemwise_xf_kernel", "xf_add_n", "xf_mul_n")
     out, cur = [], None
@@ -918,7 +1020,7 @@ def ptxas_report(text: str):
         if m:
             fn = m.group(1)
             cur = next((f"{n} k={kk}" for n in names for kk in (2, 3, 10, 12)
-                        if f"{n}ILi{kk}E" in fn and (kk > 2 or n == names[0])), None)
+                        if f"{n}ILi{kk}E" in fn and (kk > 2 or n in names[:3:2])), None)
             if cur and names[0] in fn and f"ILi{cur.split('=')[1]}Ex" in fn:
                 cur += " (64-bit index)"
             k8 = re.search(r"elemwise_xf_kernelILi\d+ELb([01])ELb([01])E", fn)
@@ -996,6 +1098,7 @@ def main():
         launches["dim24"] = solve_dim24(dev, record)
         launches["all"] = solve_all_kernels(dev, record, cpu_all, default_k3)
     profile_all_kernels(dev, record, record["config1_k3_routes"]["steady_it_per_s"]["all-kernels"])
+    profile_k1(dev, record)
 
     kernels = kernel_summary(rows, launches)
     record["total_s"] = time.time() - t_start

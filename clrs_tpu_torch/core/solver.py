@@ -23,12 +23,12 @@ The arithmetic runs in k-limb expansions, k = ``precision_k`` (2..12).
 On a CUDA problem (``use_cuda_matmul`` on by default there) the products
 of the pairings, weighted-A and trace-A go through K3 (k=2) or K4
 (k >= 3), the Schur core through K2, and S_j^-1 and Q^-1 through K1 (k=2)
-or K5 (k >= 3); ``use_cuda_inverse`` also sends X^-1 there, and
-``use_cuda_steplength`` sends the step lengths through K7 and
-``use_cuda_elemwise`` every k-limb add and multiply of the phases through
-K8.  With all three on, every kernel of the port runs: the all-kernels
-route.  On the CPU the same routing runs the
-kernels' plain versions.
+or K5 (k >= 3); ``use_cuda_inverse`` also sends X^-1 there,
+``use_cuda_steplength`` sends the step lengths of both sides through one
+K7 launch, and ``use_cuda_elemwise`` every k-limb add and multiply of the
+phases through K8.  With all three on, every kernel of the port runs: the
+all-kernels route.  On the CPU the same routing runs the kernels' plain
+versions.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ from clrs_tpu_torch.core.problem import (
     bd_map,
     bd_scalar_identity,
 )
-from clrs_tpu_torch.ops.cuda_xf import steplen_sandwich_xf, xf_spd_inverse_batched
+from clrs_tpu_torch.ops.cuda_xf import steplen_sandwich_xf_groups, xf_spd_inverse_batched
 from clrs_tpu_torch.ops.linalg import (
     jacobi_min_eig,
     xf_inverse_lu,
@@ -453,38 +453,66 @@ def compute_search_direction(problem, P, p, d, R, X_inv, Y, decomp,
     return dx, dX, dy, dY
 
 
+def _alpha(lam: torch.Tensor, gamma: float) -> torch.Tensor:
+    """alpha = min(1, -gamma/lambda_min) as a 0-dim float64 tensor."""
+    alpha = torch.where(lam > -gamma, 1.0, -gamma / torch.clamp(lam, max=-1e-300))
+    return torch.clamp(alpha, max=1.0)
+
+
+def _step_lambdas(sides, info: BlockInfo, use_cuda: bool):
+    """(lambda_min, ok) of each side (M, dM) over its blocks: the K7 route
+    (one launch for every side) or xf_min_eig_sym, one side after the
+    other."""
+    if use_cuda:
+        return _step_length_lambda_cuda(sides, info)
+    return [map_block_scalar(xf_min_eig_sym, info, M, dM) for M, dM in sides]
+
+
 def compute_step_length(M, dM, gamma: float, info: BlockInfo, use_cuda: bool = False):
     """alpha = min(1, -gamma/lambda_min), lambda_min over all blocks.
     Returns (alpha as a 0-dim float64 tensor, ok).  use_cuda takes the
     K7 route at every limb count: the reference keeps float64 limbs off
     its Pallas route (solver.py:705-710), the port has no other limbs."""
-    if use_cuda:
-        lam, ok = _step_length_lambda_cuda(M, dM, info)
-    else:
-        lam, ok = map_block_scalar(xf_min_eig_sym, info, M, dM)
-    alpha = torch.where(lam > -gamma, 1.0, -gamma / torch.clamp(lam, max=-1e-300))
-    return torch.clamp(alpha, max=1.0), ok
+    (lam, ok), = _step_lambdas([(M, dM)], info, use_cuda)
+    return _alpha(lam, gamma), ok
 
 
-def _step_length_lambda_cuda(M, dM, info: BlockInfo):
-    """lambda_min through K7 (solver._step_length_lambda_pallas): one K7
-    launch per block-size group gives L^-1 dM L^-T in float64, whose
-    symmetric part goes to the float64 Jacobi bound; scalar blocks take
-    xf_min_eig_sym (lambda = dM/M, nothing to fuse)."""
-    val = ok = None
-    for size, jls in block_groups(info).items():
-        Ms = stack_xf([M[j][l] for (j, l) in jls])
-        Ds = stack_xf([dM[j][l] for (j, l) in jls])
-        if size == 1:
-            lam, okb = xf_min_eig_sym(Ms, Ds)
-        else:
-            W, okb = steplen_sandwich_xf(Ms.limbs.transpose(0, 1),
-                                         Ds.limbs.transpose(0, 1))
-            lam = jacobi_min_eig((W + W.transpose(-1, -2)) * 0.5)
-        v, okg = torch.amin(lam), torch.all(okb)
-        val = v if val is None else torch.minimum(val, v)
-        ok = okg if ok is None else ok & okg
-    return val, ok
+def compute_step_lengths(X, dX, Y, dY, gamma: float, info: BlockInfo,
+                         use_cuda: bool = False):
+    """compute_step_length of (X, dX) and of (Y, dY) in one call:
+    (alpha_p, ok_p, alpha_d, ok_d), bit for bit the two calls; on the K7
+    route the blocks of both sides go in one launch."""
+    (lam_p, ok_p), (lam_d, ok_d) = _step_lambdas([(X, dX), (Y, dY)], info, use_cuda)
+    return _alpha(lam_p, gamma), ok_p, _alpha(lam_d, gamma), ok_d
+
+
+def _step_length_lambda_cuda(sides, info: BlockInfo):
+    """lambda_min and ok of each side (M, dM) through K7
+    (solver._step_length_lambda_pallas): one K7 launch for every block of
+    size > 1 of every side, read where it lies, gives L^-1 dM L^-T in
+    float64, one (B, n, n) view per side and block-size group, whose
+    symmetric part goes to the float64 Jacobi bound as one batch per side
+    and group; scalar blocks take xf_min_eig_sym (lambda = dM/M, nothing to
+    fuse)."""
+    groups = block_groups(info)
+    sandwiches = iter(steplen_sandwich_xf_groups(
+        [([M[j][l].limbs for (j, l) in jls], [dM[j][l].limbs for (j, l) in jls])
+         for M, dM in sides for size, jls in groups.items() if size > 1]))
+    out = []
+    for M, dM in sides:
+        val = ok = None
+        for size, jls in groups.items():
+            if size == 1:
+                lam, okb = xf_min_eig_sym(stack_xf([M[j][l] for (j, l) in jls]),
+                                          stack_xf([dM[j][l] for (j, l) in jls]))
+            else:
+                W, okb = next(sandwiches)
+                lam = jacobi_min_eig((W + W.transpose(-1, -2)) * 0.5)
+            v, okg = torch.amin(lam), torch.all(okb)
+            val = v if val is None else torch.minimum(val, v)
+            ok = okg if ok is None else ok & okg
+        out.append((val, ok))
+    return out
 
 
 def compute_error_bd(P) -> XF:
@@ -567,8 +595,8 @@ def make_ipm_phases(problem: SDPProblem, cfg: SolverConfig):
         R2 = compute_residual_R(X, Y, mu_c, info, dX, dY)
         return beta_c, R2
 
-    def phase_steplength(M, dM):
-        return compute_step_length(M, dM, cfg.gamma, info, cfg.use_cuda_steplength)
+    def phase_steplength(X, dX, Y, dY):
+        return compute_step_lengths(X, dX, Y, dY, cfg.gamma, info, cfg.use_cuda_steplength)
 
     def phase_update(problem, state, dx, dy, dX, dY, alpha_p, alpha_d, pd_feas,
                      P, p, d, mu, beta_c):
@@ -828,8 +856,8 @@ def solverank1sdp(
                            state[3], dX, dY, mu, pd_feas)
         dx, dX, dy, dY = timed("corrector_dir", phases["direction"], problem,
                                P, p, d, R2, X_inv, state[3], decomp)
-        alpha_p, ok_p = timed("alpha", phases["steplength"], state[2], dX)
-        alpha_d, ok_d = timed("alpha", phases["steplength"], state[3], dY)
+        alpha_p, ok_p, alpha_d, ok_d = timed("alpha", phases["steplength"], state[2], dX,
+                                             state[3], dY)
         if not (bool(ok_p) and bool(ok_d)):
             status = classify_failure("steplength", dX, dY)
             break

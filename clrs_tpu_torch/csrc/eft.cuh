@@ -340,11 +340,15 @@ __device__ void xf_recip(const double (&b)[K], double (&x)[K]) {
   }
 }
 
-// a / b with one refinement step (_XOps.div).
+// a / b given r = xf_recip(b): the five operations that follow the
+// reciprocal in xf_div, in its order, so that xf_div_recip(a, b,
+// xf_recip(b)) is xf_div(a, b) bit for bit.  The solves of K1, K5 and K7
+// divide by diagonal entries of L whose reciprocals the Cholesky stored
+// (chol_xf.cuh).
 template <int K>
-__device__ void xf_div(const double (&a)[K], const double (&b)[K], double (&out)[K]) {
-  double r[K], q[K], t[K], res[K];
-  xf_recip<K>(b, r);
+__device__ void xf_div_recip(const double (&a)[K], const double (&b)[K],
+                             const double (&r)[K], double (&out)[K]) {
+  double q[K], t[K], res[K];
   xf_mul_c<K>(a, r, q);
   xf_mul_c<K>(b, q, t);
 #pragma unroll
@@ -352,6 +356,14 @@ __device__ void xf_div(const double (&a)[K], const double (&b)[K], double (&out)
   xf_add_c<K>(a, t, res);
   xf_mul_c<K>(res, r, t);
   xf_add_c<K>(q, t, out);
+}
+
+// a / b with one refinement step (_XOps.div).
+template <int K>
+__device__ void xf_div(const double (&a)[K], const double (&b)[K], double (&out)[K]) {
+  double r[K];
+  xf_recip<K>(b, r);
+  xf_div_recip<K>(a, b, r, out);
 }
 
 // sqrt by rsqrt Newton plus one refinement (_XOps.sqrt); a >= 0, 0
@@ -410,7 +422,9 @@ __device__ __forceinline__ void store_xf(double* p, size_t limb_stride,
 
 // The limb counts the k-limb kernels are instantiated for.
 #define CLRS_FOR_EACH_K(X) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12)
-// K7 and K8 also take k=2, as the Pallas kernels do: the K=2 instance adds
-// and multiplies by the dd sequences and divides and takes square roots by
-// the generic Newton steps (two at k=2), as ops/xops.py does.
+// K7 and K8 also take k=2, as the Pallas kernels do, and the SPD inverse's
+// K=2 instance is K1: it adds and multiplies by the dd sequences and
+// divides and takes square roots by the generic Newton steps (two at k=2),
+// as ops/xops.py does; those are dd_div's and dd_sqrt's steps, in their
+// order.
 #define CLRS_FOR_EACH_K_FROM_2(X) X(2) CLRS_FOR_EACH_K(X)

@@ -6,7 +6,8 @@
 // (dd Cholesky with a positive-pivot flag per column, W = L^-1 by rows,
 // A^-1 = W^T W by rank-1 accumulation, matvec sums through the
 // zero-padded halving tree) with the batch on the fastest axis.  The
-// sequences are K1's (spd_inverse_dd.cu), so the two agree bit for bit;
+// sequences are K1's (the K=2 instance of spd_inverse_xf.cu), so the two
+// agree bit for bit;
 // the plain PyTorch version is clrs_tpu_torch/ops/cuda_dd.py:
 // dd_spd_inverse_wide_torch, K1's plain version.  Where the Pallas wrapper
 // pads the batch with identity blocks to whole chunks, the last thread

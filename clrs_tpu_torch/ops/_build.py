@@ -24,6 +24,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "clrs_tpu_torch"
@@ -36,18 +38,17 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # a, out, okf, scratch, B, n, np2, stream
-    "clrs_spd_inverse_dd": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # k, a, out, okf, scratch, B, n, np2, stream
-    "clrs_spd_inverse_xf": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # desc (9 int64: ops/cuda_dd._spd_inverse_plan), a, out, okf, scratch, stream
+    "clrs_spd_inverse_xf": [ctypes.c_char_p, _P, _P, _P, _P, _P],
     # k, a4, b4, hh, out, G, P2, T, stream
     "clrs_schur_pairs": [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     # desc (20 int64: ops/cuda_xf._matmul_plan), a, b, c, stream
     "clrs_matmul_xf": [ctypes.c_char_p, _P, _P, _P, _P],
     # test-only (tests/test_torch_cuda.py): a, b, p, e, p (Dekker), e (Dekker), n, stream
     "clrs_two_prod_pairs": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
-    # k, m, dm, w, okf, scratch, B, n, np2, stream
-    "clrs_steplen_xf": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # k, entries (ops/cuda_xf._STEPLEN_ENTRY each), count, w, okf, scratch, stream
+    "clrs_steplen_xf": [_I, ctypes.c_char_p, _I, _P, _P, _P, _P],
+    "clrs_steplen_xf_capacity": [],
     # desc (20 int64: ops/cuda_xf._elemwise_plan), a, b, out, stream
     "clrs_elemwise_xf": [ctypes.c_char_p, _P, _P, _P, _P],
     # a, out, okf, scratch, B, n, np2, stream
@@ -137,6 +138,23 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def stream(t) -> int:
+    """The raw handle of the current stream on t's CUDA device (no Stream
+    object is built), for a C entry's stream argument."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def cached_plan(plans: dict, key, make, *args):
+    """make(*args), kept in plans under key (emptied at 4096 layouts): a
+    kernel's description of its operands' layout, computed once for each."""
+    plan = plans.get(key)
+    if plan is None:
+        if len(plans) >= 4096:
+            plans.clear()
+        plan = plans[key] = make(*args)
+    return plan
 
 
 def check(rc: int, name: str, k: int = 2):

@@ -1,5 +1,6 @@
 """Double-double kernels K0 and K1: the dd device functions and the
-batched SPD inverse, each beside its plain PyTorch version.
+batched SPD inverse, each beside its plain PyTorch version, and the launch
+of ``csrc/spd_inverse_xf.cu``, the SPD inverse at every k (K1 and K5).
 
 K0 is ``csrc/eft.cuh``: the dd sequences of ``ops/pallas_dd.py:_Ops``
 (two_sum, fast_two_sum, split, two_prod, add, mul, div, sqrt and the
@@ -7,14 +8,19 @@ zero-padded halving sum).  Its plain versions are ``xops.sum_axis`` and,
 from ops/xfloat.py, ``dd_add``/``dd_mul`` and ``xf_div``/``xf_sqrt`` at
 k=2 (the ``_Ops`` div and sqrt sequences are theirs).
 
-K1 is ``csrc/spd_inverse_dd.cu`` (replaces
-``pallas_dd._spd_inverse_kernel``).  ``dd_spd_inverse`` is its wrapper: a
-CPU tensor takes the plain version ``dd_spd_inverse_torch``; a CUDA tensor
-launches the kernel (and counts the launch in
-``dd_spd_inverse.launches``) or raises.  The plain version follows the
-Pallas kernel's algorithm, halving trees included, so it differs from
-``ops/linalg.xf_spd_inverse`` (which sums with ``xf_sum``'s odd-fold tree
-and solves L^T x = W instead of forming W^T W) in the low limbs.
+K1 (replaces ``pallas_dd._spd_inverse_kernel``) is the K=2 instance of
+``csrc/spd_inverse_xf.cu``, whose K >= 3 instances are K5: at k=2 that
+kernel's adds, multiplies, divs and square roots are the dd sequences, in
+K1's order.  ``dd_spd_inverse`` is its wrapper: a CPU tensor takes the
+plain version ``dd_spd_inverse_torch``; a CUDA tensor launches the kernel
+(and counts the launch in ``dd_spd_inverse.launches``) or raises.  The
+plain version follows the Pallas kernel's algorithm, halving trees
+included, so it differs from ``ops/linalg.xf_spd_inverse`` (which sums
+with ``xf_sum``'s odd-fold tree and solves L^T x = W instead of forming
+W^T W) in the low limbs; it is bitwise K5's plain version
+(``cuda_xf.spd_inverse_xf_torch``) at k=2.  ``spd_inverse_launch`` runs the
+kernel for K1's and K5's wrappers and for ``cuda_xf.xf_spd_inverse_batched``
+(the solver's stacked layout), on operands read in place.
 
 K9 is ``csrc/spd_inverse_dd_wide.cu`` (replaces
 ``pallas_dd._spd_inverse_wide_kernel``): K1's sequences in the
@@ -27,6 +33,7 @@ reference's, no solver route calls it.
 
 from __future__ import annotations
 
+import struct
 from typing import Tuple
 
 import torch
@@ -91,43 +98,70 @@ def dd_spd_inverse_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     return torch.stack([acch, accl], dim=1), torch.all(okf, dim=1)
 
 
+def max_rows(k: int) -> int:
+    """The largest n that K1, K5 and K7 take at k limbs (csrc/chol_xf.cuh:
+    kMaxRows): 1024 at k=2, 256 above, where a thread takes up to 255
+    registers at k = 10..12 and a block holds 256 threads."""
+    return 1024 if k == 2 else 256
+
+
+def _spd_inverse_plan(x: torch.Tensor, limb_axis: int):
+    """The description csrc/spd_inverse_xf.cu's C entry takes for the SPD
+    inverse of x, four axes (limbs, batch, n, n) or (batch, limbs, n, n) as
+    limb_axis is 0 or 1, read in place at its strides, the output written
+    dense in x's axis order; and (k, B, n).  Raises on what the kernel does
+    not take."""
+    if x.dtype != F64 or x.ndim != 4 or x.shape[2] != x.shape[3]:
+        raise ValueError(f"spd_inverse: need 4-axis float64 limbs ending (n, n), got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    k, B, n = x.shape[limb_axis], x.shape[1 - limb_axis], x.shape[2]
+    if n > max_rows(k):
+        raise ValueError(f"spd_inverse: n={n} > {max_rows(k)} rows at k={k}")
+    st = x.stride()
+    o_ls, o_bs = (B * n * n, n * n) if limb_axis == 0 else (n * n, k * n * n)
+    desc = struct.pack("<9q", k, B, n, st[limb_axis], st[1 - limb_axis], st[2], st[3],
+                       o_ls, o_bs)
+    return desc, k, B, n
+
+
+_spd_inverse_plans = {}
+
+
+def spd_inverse_launch(wrapper, x: torch.Tensor, limb_axis: int):
+    """One launch of csrc/spd_inverse_xf.cu on the CUDA limbs x (axes as
+    _spd_inverse_plan), counted in wrapper.launches -> (inverse, dense in
+    x's axis order, ok (B,)).  The description is computed once for each
+    layout and kept."""
+    key = (x.shape, x.stride(), limb_axis, x.dtype, x.get_device())
+    desc, k, B, n = _build.cached_plan(_spd_inverse_plans, key, _spd_inverse_plan, x,
+                                       limb_axis)
+    out = x.new_empty(x.shape)
+    okf = x.new_empty((B, n))
+    if B and n:
+        scratch = x.new_empty((B * k * (2 * n * n + n),))
+        rc = _build.library().clrs_spd_inverse_xf(desc, x.data_ptr(), out.data_ptr(),
+                                                  okf.data_ptr(), scratch.data_ptr(),
+                                                  _build.stream(x))
+        if rc:
+            _build.check(rc, "clrs_spd_inverse_xf", k)
+        wrapper.launches += 1
+    return out, torch.all(okf > 0.5, dim=1)
+
+
 def dd_spd_inverse(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 wrapper: limbs (B, 2, n, n) float64 -> (inv, ok (B,)).  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    """K1 wrapper: limbs (B, 2, n, n) float64, n <= 1024, any strides ->
+    (inv (B, 2, n, n), ok (B,)).  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel on limbs where they lie."""
     if limbs.device.type == "cpu":
         return dd_spd_inverse_torch(limbs)
     if limbs.device.type != "cuda":
         raise ValueError(f"dd_spd_inverse: unsupported device {limbs.device}")
-    B, two, n, n2 = limbs.shape
-    if two != 2 or n != n2 or limbs.dtype != F64:
-        raise ValueError(f"dd_spd_inverse: need (B, 2, n, n) float64, got "
-                         f"{tuple(limbs.shape)} {limbs.dtype}")
-    if n > 1024:
-        raise ValueError(f"dd_spd_inverse: n={n} > 1024 (one thread per row)")
-    limbs = limbs.contiguous()
-    np2 = 1
-    while np2 < n:
-        np2 *= 2
-    out = torch.empty_like(limbs)
-    okf = torch.empty((B, n), dtype=F64, device=limbs.device)
-    scratch = torch.empty((B * (4 * n * n + 2 * n * np2),), dtype=F64,
-                          device=limbs.device)
-    lib = _build.library()
-    rc = lib.clrs_spd_inverse_dd(
-        limbs.data_ptr(), out.data_ptr(), okf.data_ptr(), scratch.data_ptr(),
-        B, n, np2, torch.cuda.current_stream(limbs.device).cuda_stream)
-    _build.check(rc, "clrs_spd_inverse_dd")
-    dd_spd_inverse.launches += 1
-    return out, torch.all(okf > 0.5, dim=1)
+    if limbs.ndim != 4 or limbs.shape[1] != 2:
+        raise ValueError(f"dd_spd_inverse: need (B, 2, n, n), got {tuple(limbs.shape)}")
+    return spd_inverse_launch(dd_spd_inverse, limbs, 1)
 
 
 dd_spd_inverse.launches = 0
-
-
-def xf_spd_inverse_batched(x_limbs: torch.Tensor):
-    """Adapter for the stacked-XF layout: limbs (2, B, n, n)."""
-    inv, ok = dd_spd_inverse(x_limbs.transpose(0, 1))
-    return inv.transpose(0, 1), ok
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,13 @@ a4 b4)) HH.  K3 and K4 are the k=2 and k >= 3 instances of
 accumulation, operands read in place.  K3 (replaces
 ``pallas_xf._matmul_kernel``) runs the contraction as it is; K4 (replaces
 ``pallas_xf._matmul_kernel_k`` and its tiled form K6) zero-pads it to a
-multiple of 8, as the Pallas wrappers pad it.  K5 is
-``csrc/spd_inverse_xf.cu`` (replaces
-``pallas_xf._spd_inverse_kernel_k``): the batched SPD inverse at k >= 3.
-K7 is ``csrc/steplen_xf.cu`` (replaces
+multiple of 8, as the Pallas wrappers pad it.  K5 is the k >= 3 instances
+of ``csrc/spd_inverse_xf.cu`` (replaces
+``pallas_xf._spd_inverse_kernel_k``): the batched SPD inverse, whose k=2
+instance is K1 (``cuda_dd.py``).  K7 is ``csrc/steplen_xf.cu`` (replaces
 ``pallas_xf._steplen_sandwich_kernel_k``): the step-length sandwich
-L^-1 dM L^-T with M = L L^T, in plain float64 out.  K8 is
+L^-1 dM L^-T with M = L L^T, in plain float64 out, every block of a solver
+iteration in one launch.  K8 is
 ``csrc/elemwise_xf.cu`` (replaces ``pallas_xf._elemwise_kernel_k``): the
 elementwise k-limb add or multiply that ``xfloat.xf_add``/``xf_mul`` call
 inside ``xfloat.elemwise_cuda()`` (``SolverConfig.use_cuda_elemwise``).
@@ -38,7 +39,12 @@ from typing import Tuple
 import torch
 
 from clrs_tpu_torch.ops import _build, xops
-from clrs_tpu_torch.ops.cuda_dd import xf_spd_inverse_batched as _dd_spd_inverse_batched
+from clrs_tpu_torch.ops.cuda_dd import (
+    dd_spd_inverse,
+    dd_spd_inverse_torch,
+    max_rows,
+    spd_inverse_launch,
+)
 from clrs_tpu_torch.ops.xfloat import (
     F64,
     XF,
@@ -49,31 +55,12 @@ from clrs_tpu_torch.ops.xfloat import (
     two_prod,
 )
 
-# K5 and K7 finish each row of a matrix in a thread of its own; at
-# k = 10..12 a thread takes up to 255 registers, so a block holds at most
-# 256 of them (csrc/chol_xf.cuh: kMaxRows).
-MAX_ROWS = 256
-
-
 def _check_cuda(name: str, *ts: torch.Tensor):
     for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: unsupported device {t.device}")
         if t.dtype != F64:
             raise ValueError(f"{name}: need float64 limbs, got {t.dtype}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The raw handle of the current stream on t's device (no Stream
-    object is built)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
-
-
-def _np2(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
 
 
 def _merged_axes(shape, a_shape, a_strides, b_shape, b_strides):
@@ -99,16 +86,6 @@ def _merged_axes(shape, a_shape, a_strides, b_shape, b_strides):
             sa.append(x)
             sb.append(y)
     return dims, sa, sb
-
-
-def _cached_plan(plans: dict, key, make, *args):
-    """make(*args), kept in plans under key (emptied at 4096 layouts)."""
-    plan = plans.get(key)
-    if plan is None:
-        if len(plans) >= 4096:
-            plans.clear()
-        plan = plans[key] = make(*args)
-    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +118,7 @@ def schur_pairs(a4: torch.Tensor, b4: torch.Tensor, hh: torch.Tensor) -> torch.T
     out = torch.empty((k, G, P2, T, T), dtype=F64, device=a4.device)
     rc = _build.library().clrs_schur_pairs(
         k, a4.data_ptr(), b4.data_ptr(), hh.data_ptr(), out.data_ptr(), G, P2, T,
-        _stream(a4))
+        _build.stream(a4))
     _build.check(rc, "clrs_schur_pairs", k)
     schur_pairs.launches += 1
     return out
@@ -255,11 +232,11 @@ def _matmul(wrapper, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     computed once for each layout of the pair and kept."""
     key = (a.shape, a.stride(), b.shape, b.stride(), a.dtype, b.dtype, a.get_device(),
            b.get_device())
-    desc, shape, N = _cached_plan(_matmul_plans, key, _matmul_plan, a, b)
+    desc, shape, N = _build.cached_plan(_matmul_plans, key, _matmul_plan, a, b)
     out = a.new_empty(shape)
     if N:
         rc = _build.library().clrs_matmul_xf(desc, a.data_ptr(), b.data_ptr(),
-                                             out.data_ptr(), _stream(a))
+                                             out.data_ptr(), _build.stream(a))
         if rc:
             _build.check(rc, "clrs_matmul_xf", shape[0])
         wrapper.launches += 1
@@ -394,25 +371,15 @@ def spd_inverse_xf_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
 
 
 def spd_inverse_xf(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5 wrapper: limbs (B, k, n, n) float64, k >= 3 -> (inv, ok (B,))."""
+    """K5 wrapper: limbs (B, k, n, n) float64, k >= 3, n <= 256, any
+    strides -> (inv (B, k, n, n), ok (B,)), the limbs read where they
+    lie."""
     if limbs.device.type == "cpu":
         return spd_inverse_xf_torch(limbs)
     _check_cuda("spd_inverse_xf", limbs)
-    B, k, n, n2 = limbs.shape
-    if k < 3 or n != n2:
+    if limbs.ndim != 4 or limbs.shape[1] < 3:
         raise ValueError(f"spd_inverse_xf: need (B, k>=3, n, n), got {tuple(limbs.shape)}")
-    if n > MAX_ROWS:
-        raise ValueError(f"spd_inverse_xf: n={n} > {MAX_ROWS} (a thread per row)")
-    limbs = limbs.contiguous()
-    out = torch.empty_like(limbs)
-    okf = torch.empty((B, n), dtype=F64, device=limbs.device)
-    scratch = torch.empty((B * 2 * k * n * n,), dtype=F64, device=limbs.device)
-    rc = _build.library().clrs_spd_inverse_xf(
-        k, limbs.data_ptr(), out.data_ptr(), okf.data_ptr(), scratch.data_ptr(),
-        B, n, _np2(n), _stream(limbs))
-    _build.check(rc, "clrs_spd_inverse_xf", k)
-    spd_inverse_xf.launches += 1
-    return out, torch.all(okf > 0.5, dim=1)
+    return spd_inverse_launch(spd_inverse_xf, limbs, 1)
 
 
 spd_inverse_xf.launches = 0
@@ -420,11 +387,15 @@ spd_inverse_xf.launches = 0
 
 def xf_spd_inverse_batched(x_limbs: torch.Tensor):
     """SPD inverse of the stacked-XF layout, limbs (k, B, n, n): K1 at
-    k=2, K5 at k >= 3."""
-    if x_limbs.shape[0] == 2:
-        return _dd_spd_inverse_batched(x_limbs)
-    inv, ok = spd_inverse_xf(x_limbs.transpose(0, 1))
-    return inv.transpose(0, 1), ok
+    k=2, K5 at k >= 3 (each counted as its wrapper's launch), read in place
+    and returned in that layout; a CPU tensor takes the plain version."""
+    wrapper, plain = ((dd_spd_inverse, dd_spd_inverse_torch) if x_limbs.shape[0] == 2
+                      else (spd_inverse_xf, spd_inverse_xf_torch))
+    if x_limbs.device.type == "cpu":
+        inv, ok = plain(x_limbs.transpose(0, 1))
+        return inv.transpose(0, 1), ok
+    _check_cuda("xf_spd_inverse_batched", x_limbs)
+    return spd_inverse_launch(wrapper, x_limbs, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -453,29 +424,86 @@ def steplen_sandwich_xf_torch(m: torch.Tensor, dm: torch.Tensor
     return X[0] + X[1], torch.all(okf, dim=1)
 
 
+# One matrix of a K7 launch (csrc/steplen_xf.cu: Entry): the M and dM
+# pointers, their limb, row and column strides, the offsets of its W and
+# flags, and n.
+_STEPLEN_ENTRY = struct.Struct("<2Q9q")
+
+
+def steplen_sandwich_xf_groups(groups):
+    """K7 over every block of several groups in one launch: groups is a
+    sequence of (ms, dms), ms and dms sequences of B float64 limb tensors
+    (k, n, n) of one n per group, any strides, read where they lie ->
+    [(W (B, n, n) float64, ok (B,))], one per group, each W a dense view of
+    one buffer.  A CPU group takes the plain version on its stacked
+    blocks.  More blocks than one launch's table holds (360 from CUDA 12.1
+    on) take as few launches as they need; each launch counts in
+    steplen_sandwich_xf.launches, K7's count."""
+    if not groups:
+        return []
+    first = groups[0][0][0]
+    if first.device.type == "cpu":
+        return [steplen_sandwich_xf_torch(torch.stack(ms), torch.stack(dms))
+                for ms, dms in groups]
+    _check_cuda("steplen_sandwich_xf", first)
+    k, entries, spans, w_size, ok_size = _steplen_table(groups)
+    w = first.new_empty((w_size,))
+    okf = first.new_empty((ok_size,))
+    scratch = first.new_empty((k * (2 * w_size + ok_size),))
+    lib = _build.library()
+    cap = lib.clrs_steplen_xf_capacity()
+    for i in range(0, len(entries), cap):
+        chunk = entries[i:i + cap]
+        rc = lib.clrs_steplen_xf(k, b"".join(chunk), len(chunk), w.data_ptr(), okf.data_ptr(),
+                                 scratch.data_ptr(), _build.stream(first))
+        if rc:
+            _build.check(rc, "clrs_steplen_xf", k)
+        steplen_sandwich_xf.launches += 1
+    return [(w[wo:wo + B * n * n].view(B, n, n),
+             torch.all(okf[oo:oo + B * n].view(B, n) > 0.5, dim=1))
+            for B, n, wo, oo in spans]
+
+
+def _steplen_table(groups):
+    """The entries of K7's launches for groups (as
+    steplen_sandwich_xf_groups), each block read where it lies: (k,
+    entries, spans, W's length, the flags' length), spans (B, n, W offset,
+    flags offset) per group.  Raises on what the kernel does not take."""
+    first = groups[0][0][0]
+    k, dev = first.shape[0], first.get_device()
+    entries, spans = [], []
+    w_off = ok_off = 0
+    for ms, dms in groups:
+        n = ms[0].shape[-1]
+        if n > max_rows(k) or len(ms) != len(dms):
+            raise ValueError(f"steplen_sandwich_xf: {len(ms)} M and {len(dms)} dM blocks "
+                             f"of n={n} (at most {max_rows(k)} rows at k={k})")
+        spans.append((len(ms), n, w_off, ok_off))
+        for m, dm in zip(ms, dms):
+            if (m.shape != (k, n, n) or dm.shape != (k, n, n) or m.dtype != F64
+                    or dm.dtype != F64 or m.get_device() != dev or dm.get_device() != dev):
+                raise ValueError(f"steplen_sandwich_xf: need float64 limbs ({k}, {n}, {n}) "
+                                 f"on one device, got {tuple(m.shape)} {m.dtype} {m.device} "
+                                 f"and {tuple(dm.shape)} {dm.dtype} {dm.device}")
+            entries.append(_STEPLEN_ENTRY.pack(m.data_ptr(), dm.data_ptr(), *m.stride(),
+                                               *dm.stride(), w_off, ok_off, n))
+            w_off += n * n
+            ok_off += n
+    return k, entries, spans, w_off, ok_off
+
+
 def steplen_sandwich_xf(m: torch.Tensor, dm: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K7 wrapper: m, dm (B, k, n, n) float64, k = 2..12 -> (W (B, n, n),
-    ok (B,))."""
+    """K7 wrapper: m, dm (B, k, n, n) float64, k = 2..12, any strides ->
+    (W (B, n, n), ok (B,)): one launch (steplen_sandwich_xf_groups with one
+    group)."""
     if m.device.type == "cpu":
         return steplen_sandwich_xf_torch(m, dm)
     _check_cuda("steplen_sandwich_xf", m, dm)
-    B, k, n, n2 = m.shape
-    if n != n2 or tuple(dm.shape) != tuple(m.shape):
+    if m.ndim != 4 or tuple(dm.shape) != tuple(m.shape):
         raise ValueError(f"steplen_sandwich_xf: bad shapes {tuple(m.shape)} "
                          f"{tuple(dm.shape)}")
-    if n > MAX_ROWS:
-        raise ValueError(f"steplen_sandwich_xf: n={n} > {MAX_ROWS} (a thread per row)")
-    m, dm = m.contiguous(), dm.contiguous()
-    w = torch.empty((B, n, n), dtype=F64, device=m.device)
-    okf = torch.empty((B, n), dtype=F64, device=m.device)
-    scratch = torch.empty((B * 2 * k * n * n,), dtype=F64, device=m.device)
-    rc = _build.library().clrs_steplen_xf(
-        k, m.data_ptr(), dm.data_ptr(), w.data_ptr(), okf.data_ptr(), scratch.data_ptr(),
-        B, n, _np2(n), _stream(m))
-    _build.check(rc, "clrs_steplen_xf", k)
-    steplen_sandwich_xf.launches += 1
-    return w, torch.all(okf > 0.5, dim=1)
+    return steplen_sandwich_xf_groups([(m.unbind(0), dm.unbind(0))])[0]
 
 
 steplen_sandwich_xf.launches = 0
@@ -554,11 +582,11 @@ def elemwise_xf(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"elemwise_xf: unsupported devices {a.device}, {b.device}")
     key = (op, a.shape, a.stride(), b.shape, b.stride(), a.dtype, b.dtype, dev,
            b.get_device())
-    desc, shape, N = _cached_plan(_elemwise_plans, key, _elemwise_plan, op, a, b)
+    desc, shape, N = _build.cached_plan(_elemwise_plans, key, _elemwise_plan, op, a, b)
     out = a.new_empty(shape)
     if N:
         rc = _build.library().clrs_elemwise_xf(desc, a.data_ptr(), b.data_ptr(),
-                                               out.data_ptr(), _stream(a))
+                                               out.data_ptr(), _build.stream(a))
         if rc:
             _build.check(rc, "clrs_elemwise_xf", shape[0])
         elemwise_xf.launches += 1

@@ -1,5 +1,5 @@
-"""Time the port's K3, K4, K5, K7 and K8 and both k=3 routes of config 1
-in one source tree, so that two trees can be compared in turns on one card.
+"""Time the port's K1, K3, K4, K5, K7 and K8 and the routes of config 1 in
+one source tree, so that two trees can be compared in turns on one card.
 
     python clrs_tpu_torch/tools/kernel_turns.py TREE LABEL OUT.json [--matmul]
 
@@ -11,21 +11,30 @@ turns in one call on one card (A, B, B, A) and comparing within the call.
 For each kernel case it records the median time of one call between two
 CUDA events (the host's call path included, as the solver meets it), the
 time per call over a run of back-to-back calls, and the device time per
-launch that torch.profiler reports, with the other launches per call (a
-copy of an operand shows there); K3 (k=2) and K4 (k=3) at every
+launch that torch.profiler reports, with the kernel's launches and the
+other launches per call (a copy of an operand shows there); K3 (k=2) and
+K4 (k=3) at every
 main-path shape of ``chip_smoke.MATMUL_SHAPES`` and wide, through their
 wrappers, and on the solver's transposed and broadcast operands through
 ``xf_matmul_k``; K4 at every k = 4..12 on config 1's (6,6)x(6,11) and
 (6,11)x(11,6) products.  It also records each matmul kernel's SASS as
 ``cuobjdump`` reads it from TREE's library: instructions, FP64 adds,
 multiplies and FMAs, local-memory loads and stores, and registers and
-stack.  Then, unless ``--matmul`` is given (the matmul cases only),
-config 1 (Delsarte dim 8, 2d=10) at k=3 on the all-kernels route (a full
-solve) and on the default route (the first 8 iterations): steady it/s
-and ms/iter by phase; and chip_smoke's profile of iterations 3-6 of the
-all-kernels route (launches per iteration by kernel name, copy launches
-in all), without its checks.  Inputs come from fixed seeds, so every turn
-sees the same data.  Needs a CUDA card.
+stack.  Then, unless ``--matmul`` is given (the matmul cases only): K8;
+K1 (k=2) at S_j 11x11, Q 10x10, the signs 10x1x1, wide 256x64x64 and one
+block of 257 and of 1024 rows (fewer repetitions); K5
+at k=3 and 10; K7 per block size and, as "iteration", the K7 work of one
+all-kernels iteration of config 1 (the 6x6 and 5x5 blocks of X and of Y,
+each a (k, n, n) tensor as the solver holds them): one launch through
+``steplen_sandwich_xf_groups`` where the tree has it, else a launch per
+group on the blocks stacked as that tree's solver stacked them; config 1
+(Delsarte dim 8, 2d=10) at k=3 on the all-kernels route (a full solve),
+on the default route (the first 8 iterations) and at k=2 on the default
+route (the first 8 iterations): steady it/s, ms/iter by phase and the
+kernels' launches per iteration; and chip_smoke's profile of iterations
+3-6 of the all-kernels route (launches per iteration by kernel name, copy
+launches in all), without its checks.  Inputs come from fixed seeds, so
+every turn sees the same data.  Needs a CUDA card.
 """
 
 import collections
@@ -45,9 +54,10 @@ import chip_smoke as smoke  # noqa: E402
 DEV = torch.device("cuda", 0)
 
 
-def device_ms(fn, word, count=20):
-    """Device time per launch of the kernels whose name holds word, and
-    the device launches of other kernels per call, by torch.profiler."""
+def device_ms(fn, kernel, count=20):
+    """Device time per launch of the kernels whose name the regular
+    expression kernel finds, their launches per call, and the device
+    launches of other kernels per call, by torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -57,22 +67,29 @@ def device_ms(fn, word, count=20):
         for _ in range(count):
             fn()
         torch.cuda.synchronize()
-    mine = [e for e in prof.events() if e.device_type == DeviceType.CUDA and word in e.name]
-    others = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and word not in e.name]
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = [e for e in on_card if re.search(kernel, e.name)]
     us = sum(e.time_range.elapsed_us() for e in mine)
-    return (us / 1e3 / len(mine) if mine else None), len(others) / count
+    return ((us / 1e3 / len(mine) if mine else None), len(mine) / count,
+            (len(on_card) - len(mine)) / count)
 
 
-def case(label_tree, rows, kernel, label, fn, reps=50, count=200):
+# K1's kernel in either tree: its own source's, or the k=2 instance of K5's
+K1_KERNEL = r"spd_inverse_dd_kernel|spd_inverse_xf_kernel(<|ILi)2\b"
+K5_KERNEL = r"spd_inverse_xf_kernel(<|ILi)([3-9]|1[0-2])\b"
+
+
+def case(label_tree, rows, kernel, label, fn, reps=50, count=200, profiled=20):
     one = smoke.median_ms(fn, reps)
     many = smoke.many_ms(fn, max(5, min(count, int(20.0 / max(one, 0.05)))))
-    dev_ms, other_launches = device_ms(fn, kernel)
+    dev_ms, launches, other_launches = device_ms(fn, kernel, profiled)
     rows.append(dict(kernel=kernel, case=label, single_ms=one, many_ms=many,
-                     device_ms=dev_ms, other_launches_per_call=other_launches))
-    print(f"{label_tree:8s} {kernel:22s} {label:34s} single {one:9.4f} ms  "
+                     device_ms=dev_ms, launches_per_call=launches,
+                     other_launches_per_call=other_launches))
+    name = {K1_KERNEL: "K1", K5_KERNEL: "K5"}.get(kernel, kernel)
+    print(f"{label_tree:8s} {name:22s} {label:34s} single {one:9.4f} ms  "
           f"many {many:9.4f} ms  device {dev_ms if dev_ms is None else round(dev_ms, 5)} ms  "
-          f"other launches/call {other_launches:.2f}", flush=True)
+          f"x {launches:.2f}  other launches/call {other_launches:.2f}", flush=True)
 
 
 def sass(library, word="matmul"):
@@ -110,7 +127,7 @@ def sass(library, word="matmul"):
 
 
 def kernels(label_tree, matmul_only=False):
-    from clrs_tpu_torch.ops import cuda_xf
+    from clrs_tpu_torch.ops import cuda_dd, cuda_xf
     from clrs_tpu_torch.ops.xfloat import XF, elemwise_cuda, xf_add, xf_mul
 
     rng = np.random.default_rng(0)
@@ -155,11 +172,20 @@ def kernels(label_tree, matmul_only=False):
         a, b = smoke.rand_xf(rng, (1 << 20,), k, DEV), smoke.rand_xf(rng, (1 << 20,), k, DEV)
         add("elemwise_xf_kernel", f"wrapper k={k} {op} wide 2^20",
             lambda op=op, a=a, b=b: cuda_xf.elemwise_xf(op, a, b), reps=10, count=20)
+    for label, (B, n, cond) in smoke.INVERSE_SHAPES + (("wide 256x64x64", (256, 64, 1e10)),):
+        a = smoke.spd_batch(rng, B, n, 2, cond, DEV)
+        wide = label.startswith("wide")
+        add(K1_KERNEL, f"k=2 {label}", lambda a=a: cuda_dd.dd_spd_inverse(a),
+            reps=5 if wide else 20, count=10 if wide else 50)
+    for n in (257, 1024):  # one block above the 256 threads of a K1 block
+        a = smoke.spd_batch(rng, 1, n, 2, 1e4, DEV)
+        add(K1_KERNEL, f"k=2 1x{n}x{n}", lambda a=a: cuda_dd.dd_spd_inverse(a), reps=1,
+            count=1, profiled=1)
     for k, B, n, cond, label in ((3, 1, 11, 1e8, "S_j 1x11x11"), (3, 1, 10, 1e6, "Q 1x10x10"),
                                  (10, 1, 11, 1e8, "S_j 1x11x11"),
                                  (3, 64, 32, 1e10, "wide 64x32x32")):
         a = smoke.spd_batch(rng, B, n, k, cond, DEV)
-        add("spd_inverse_xf_kernel", f"k={k} {label}",
+        add(K5_KERNEL, f"k={k} {label}",
             lambda a=a: cuda_xf.spd_inverse_xf(a), reps=20, count=50)
     for k, B, n, label in ((3, 1, 6, "1x6x6"), (3, 1, 5, "1x5x5"), (10, 1, 6, "1x6x6"),
                            (3, 64, 32, "wide 64x32x32")):
@@ -168,19 +194,36 @@ def kernels(label_tree, matmul_only=False):
         d = ((d + d.transpose(-1, -2)) / 2).contiguous()
         add("steplen_xf_kernel", f"k={k} {label}",
             lambda m=m, d=d: cuda_xf.steplen_sandwich_xf(m, d), reps=20, count=50)
+    for k in (3, 10):
+        blocks = []  # X's and Y's 6x6 and 5x5 blocks, (k, n, n) each
+        for n in (6, 5, 6, 5):
+            d = smoke.rand_xf(rng, (n, n), k, DEV)
+            blocks.append((smoke.spd_batch(rng, 1, n, k, 1e6, DEV)[0],
+                           (d + d.transpose(-1, -2)) / 2))
+        if hasattr(cuda_xf, "steplen_sandwich_xf_groups"):
+            def iteration(blocks=blocks):
+                cuda_xf.steplen_sandwich_xf_groups([([m], [d]) for m, d in blocks])
+        else:  # a launch per group, the blocks stacked as that tree's solver stacked them
+            def iteration(blocks=blocks):
+                for m, d in blocks:
+                    cuda_xf.steplen_sandwich_xf(torch.stack([m], dim=1).transpose(0, 1),
+                                                torch.stack([d], dim=1).transpose(0, 1))
+        add("steplen_xf_kernel", f"k={k} iteration X, Y x (6x6, 5x5)", iteration,
+            reps=20, count=50)
     return rows
 
 
-def route(label_tree, name, **kwargs):
+def route(label_tree, name, k=3, **kwargs):
     from clrs_tpu_torch import delsarte_lp_bound
-    from clrs_tpu_torch.ops import cuda_xf
+    from clrs_tpu_torch.ops import cuda_dd, cuda_xf
 
     counted = (cuda_xf.elemwise_xf, cuda_xf.spd_inverse_xf, cuda_xf.steplen_sandwich_xf,
-               cuda_xf.matmul_xf)
+               cuda_xf.matmul_xf, cuda_dd.dd_spd_inverse, cuda_xf.dd_matmul,
+               cuda_xf.schur_pairs)
     for fn in counted:
         fn.launches = 0
     t0 = time.time()
-    bound, res = delsarte_lp_bound(8, 5, precision_k=3, device=DEV, omega_p=100.0,
+    bound, res = delsarte_lp_bound(8, 5, precision_k=k, device=DEV, omega_p=100.0,
                                    omega_d=100.0, verbose=False, **kwargs)
     torch.cuda.synchronize()
     steady = (res.iterations - 2) / max(sum(res.timings.values()), 1e-12)
@@ -213,7 +256,8 @@ def main():
     result["kernels"] = kernels(label, matmul_only)
     if not matmul_only:
         result["routes"] = [route(label, "all-kernels", **smoke.ALL_KERNELS_ROUTE),
-                            route(label, "default (8 iterations)", maxiterations=8)]
+                            route(label, "default (8 iterations)", maxiterations=8),
+                            route(label, "k=2 default (8 iterations)", k=2, maxiterations=8)]
         result["profile"] = smoke.profile_all_kernels(
             DEV, {}, result["routes"][0]["steady_it_per_s"], check=False)
     with open(out, "w") as f:

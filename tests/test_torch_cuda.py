@@ -1,10 +1,16 @@
 """The port's CUDA kernels K1-K9 on the card, each bit for bit against its
 plain PyTorch version (the comparison that chip_smoke.py also makes at the
 main path's and at wide shapes; K8 also on broadcast and mixed-limb
-operands, K5 and K7 at every shape of their dot products' halving tree).  These tests need an NVIDIA GPU and nvcc
-and skip elsewhere; the file imports no JAX, so it runs on the card's
-machine:  python -m pytest -m gpu tests/test_torch_cuda.py
+operands, K1 at n = 1..65, 257 and 1024, K5 and K7 at every shape of their
+dot products' halving tree at every k, K7 on one launch of blocks of every
+size).  These tests need an NVIDIA GPU and nvcc and skip elsewhere; the
+file imports no JAX, so it runs on the card's machine:
+python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
 """
+
+import os
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 
 import numpy as np
 import pytest
@@ -47,6 +53,43 @@ def test_spd_inverse_kernel_bitwise(cuda, B, n):
     assert torch.equal(ok_k, ok_p) and not bool(ok_k[-1])
     good = ok_p.nonzero()[:, 0]
     assert torch.equal(inv_k[good].view(torch.int64), inv_p[good].view(torch.int64))
+
+
+@pytest.mark.gpu
+def test_k1_every_tree_size_bitwise(cuda):
+    """K1, the k=2 instance of K5's kernel, at n = 1..65 (every shape of the
+    dot products' halving tree), two blocks of which the second is
+    indefinite, on (B, 2, n, n) and on the solver's stacked (2, B, n, n)
+    view, both read in place: flags and limbs equal to K1's plain version
+    (run on the CPU copies, bit for bit what it gives on the card)."""
+    rng = np.random.default_rng(30)
+    for n in range(1, 66):
+        a = spd_batch(rng, 2, n, 1e6)
+        a[1, 0, n // 2, n // 2] = -1.0
+        inv_p, ok_p = cuda_dd.dd_spd_inverse_torch(a)
+        before = cuda_dd.dd_spd_inverse.launches
+        inv_k, ok_k = cuda_dd.dd_spd_inverse(a.to(cuda))
+        inv_s, ok_s = cuda_xf.xf_spd_inverse_batched(a.to(cuda).transpose(0, 1))
+        assert cuda_dd.dd_spd_inverse.launches == before + 2
+        assert ok_k.tolist() == ok_s.tolist() == ok_p.tolist() == [True, False], n
+        assert bitwise(inv_k[0].cpu(), inv_p[0]) and bitwise(inv_s[:, 0].cpu(), inv_p[0]), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [257, 1024])
+def test_k1_large_bitwise(cuda, n):
+    """K1 above the 256 threads of its block (each thread finishes up to
+    four rows), up to its cap of 1024 rows, against its plain version on
+    the card; one row more raises."""
+    a = spd_batch(np.random.default_rng(n), 1, n, 1e4).to(cuda)
+    inv_k, ok_k = cuda_dd.dd_spd_inverse(a)
+    inv_p, ok_p = cuda_dd.dd_spd_inverse_torch(a)
+    assert ok_k.tolist() == ok_p.tolist() == [True]
+    assert bitwise(inv_k, inv_p)
+    if n == cuda_dd.max_rows(2):
+        with pytest.raises(ValueError):
+            cuda_dd.dd_spd_inverse(torch.zeros((1, 2, n + 1, n + 1), dtype=torch.float64,
+                                               device=cuda))
 
 
 @pytest.mark.gpu
@@ -302,6 +345,57 @@ def test_steplen_xf_kernel_bitwise(cuda, k):
     assert bitwise(w_k, w_p)
 
 
+def sandwich_blocks(rng, n, k):
+    """An SPD M (k, n, n) and a symmetric dM as (k, n, n) views, dM
+    transposed (the kernel reads it at its strides)."""
+    m = spd_batch(rng, 1, n, 1e4)
+    m = torch.cat([m, torch.zeros((1, k - 2, n, n), dtype=torch.float64)], dim=1)[0]
+    d = rand_xf(rng, (n, n), k)
+    return m, ((d + d.transpose(-1, -2)) / 2).transpose(-1, -2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 3, 6, 12])
+def test_steplen_one_launch_mixed_sizes_bitwise(cuda, k):
+    """The solver's K7 launch: blocks of every size 1..65 on an X side and
+    a Y side (a group each, as the solver hands them over, dM a transposed
+    view) in one launch, equal bit for bit to a launch per group and to the
+    plain version: at k <= 3 at every size, at k = 6 and 12 at the shapes
+    of the halving tree (the plain version at k=12 takes ~1 min a block on
+    the CPU)."""
+    rng = np.random.default_rng(700 + k)
+    sizes = range(1, 66)
+    groups = [([m], [d]) for side in range(2) for m, d in
+              (sandwich_blocks(rng, n, k) for n in sizes)]
+    on_card = [([m.to(cuda)], [d.to(cuda)]) for (m,), (d,) in groups]
+    before = cuda_xf.steplen_sandwich_xf.launches
+    joint = cuda_xf.steplen_sandwich_xf_groups(on_card)
+    assert cuda_xf.steplen_sandwich_xf.launches == before + 1
+    plain_sizes = set(sizes) if k <= 3 else set(TREE_SIZES)
+    for i, (((m,), (d,)), (w, ok)) in enumerate(zip(groups, joint)):
+        (w1, ok1), = cuda_xf.steplen_sandwich_xf_groups([on_card[i]])
+        assert ok.tolist() == ok1.tolist() == [True] and bitwise(w, w1), (k, i)
+        n = m.shape[-1]
+        if i < len(sizes) and n in plain_sizes:
+            w_p, ok_p = cuda_xf.steplen_sandwich_xf_torch(m[None], d[None])
+            assert ok_p.tolist() == [True] and bitwise(w.cpu(), w_p), (k, n)
+
+
+@pytest.mark.gpu
+def test_steplen_more_blocks_than_one_table(cuda):
+    """More blocks than one launch's table holds take as few launches as
+    they need, each block's result the same as in a launch of its own."""
+    cap = cuda_xf._build.library().clrs_steplen_xf_capacity()
+    rng = np.random.default_rng(710)
+    ms, ds = zip(*(sandwich_blocks(rng, 3, 3) for _ in range(cap + 5)))
+    ms, ds = [m.to(cuda) for m in ms], [d.to(cuda) for d in ds]
+    before = cuda_xf.steplen_sandwich_xf.launches
+    (w, ok), = cuda_xf.steplen_sandwich_xf_groups([(ms, ds)])
+    assert cuda_xf.steplen_sandwich_xf.launches == before + 2
+    w1, ok1 = cuda_xf.steplen_sandwich_xf(torch.stack(ms[-3:]), torch.stack(ds[-3:]))
+    assert bool(torch.all(ok)) and bool(torch.all(ok1)) and bitwise(w[-3:], w1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", ALL_KS)
 @pytest.mark.parametrize("op", ["add", "mul"])
@@ -347,16 +441,13 @@ def bitwise_nan(a, b):
     return torch.equal(na, nb) and bitwise(a[~na], b[~nb])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("k", [3, 12])
-@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 64, 65])
-def test_row_kernels_tree_boundaries_bitwise(cuda, k, n):
-    """K5 and K7 at the sizes where the dot products' halving tree changes
-    shape (one term per lane, a group below a warp, a full warp, terms kept
-    in the lane): flags and every limb equal to the plain versions, the second
-    of two blocks indefinite.  The plain versions run on the CPU copies of
-    the inputs (bit for bit what they give on the card, in a fraction of
-    the time: at k=12 they are minutes of small launches there)."""
+TREE_SIZES = (1, 2, 31, 32, 33, 64, 65)
+
+
+def tree_inputs(k, n):
+    """The tree test's inputs at (k, n), the same in every process: two
+    blocks for K5 and two M and a symmetric dM for K7, the second block of
+    each indefinite."""
     rng = np.random.default_rng(600 + 100 * k + n)
 
     def blocks():
@@ -367,11 +458,41 @@ def test_row_kernels_tree_boundaries_bitwise(cuda, k, n):
 
     a, m = blocks(), blocks()
     d = rand_xf(rng, (2, n, n), k).transpose(0, 1)
-    d = ((d + d.transpose(-1, -2)) / 2).contiguous()
-    inv_p, ok_p = cuda_xf.spd_inverse_xf_torch(a)
-    w_p, okw_p = cuda_xf.steplen_sandwich_xf_torch(m, d)
-    a, m, d = a.to(cuda), m.to(cuda), d.to(cuda)
-    inv_k, ok_k = cuda_xf.spd_inverse_xf(a)
+    return a, m, ((d + d.transpose(-1, -2)) / 2).contiguous()
+
+
+def tree_plain(k, n):
+    """K5's and K7's plain versions on tree_inputs(k, n), on the CPU (bit
+    for bit what they give on the card, in a fraction of the time: at k=12
+    they are minutes of small launches there)."""
+    torch.set_num_threads(1)
+    a, m, d = tree_inputs(k, n)
+    return cuda_xf.spd_inverse_xf_torch(a), cuda_xf.steplen_sandwich_xf_torch(m, d)
+
+
+@pytest.fixture(scope="module")
+def tree_plains():
+    """The plain versions of every tree case, started at once in CPU worker
+    processes (the costliest first); the pool ends with the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    cases = sorted(((k, n) for k in ALL_KS for n in TREE_SIZES), key=lambda c: -c[0] ** 2 * c[1])
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1), mp_context=get_context("spawn")) as pool:
+        yield {c: pool.submit(tree_plain, *c) for c in cases}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", ALL_KS)
+@pytest.mark.parametrize("n", TREE_SIZES)
+def test_row_kernels_tree_boundaries_bitwise(cuda, tree_plains, k, n):
+    """K5 (K1 at k=2) and K7 at the sizes where the dot products' halving
+    tree changes shape (one term per lane, a group below a warp, a full
+    warp, terms kept in the lane), at every k: flags and every limb equal
+    to the plain versions, the second of two blocks indefinite, each
+    diagonal's reciprocal taken from the Cholesky."""
+    (inv_p, ok_p), (w_p, okw_p) = tree_plains[(k, n)].result()
+    a, m, d = (x.to(cuda) for x in tree_inputs(k, n))
+    inv_k, ok_k = (cuda_dd.dd_spd_inverse if k == 2 else cuda_xf.spd_inverse_xf)(a)
     w_k, okw_k = cuda_xf.steplen_sandwich_xf(m, d)
     assert ok_k.tolist() == ok_p.tolist() == [True, False]
     assert okw_k.tolist() == okw_p.tolist() == [True, False]
@@ -400,7 +521,8 @@ def test_row_kernels_at_max_rows(cuda, kernel):
     thread takes the most registers: both launch, flag the indefinite
     block and agree with float64 LAPACK on the other to 1e-10 of its
     largest entry; one row more raises."""
-    k, n = 12, cuda_xf.MAX_ROWS
+    k = 12
+    n = cuda_xf.max_rows(k)
     rng = np.random.default_rng(500)
     m = spd_batch(rng, 2, n, 1e2)
     m = torch.cat([m, torch.zeros((2, k - 2, n, n), dtype=torch.float64)], dim=1).to(cuda)

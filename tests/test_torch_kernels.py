@@ -117,6 +117,62 @@ def test_spd_inverse_plain_versus_dd_ops():
     assert_bitwise(xf_mul(w, w), TXF(inv[:, :, 0, 0].T.contiguous()))
 
 
+@pytest.mark.parametrize("n", [1, 2, 5, 11, 17])
+def test_spd_inverse_k2_plain_is_k1_plain(n):
+    """K1 is the k=2 instance of K5's kernel: K5's plain version at k=2
+    gives K1's plain version bit for bit, limbs and flags, the second of
+    two blocks indefinite."""
+    rng = np.random.default_rng(40 + n)
+    limbs = np.stack([spd_dd(rng, n, 1e6) for _ in range(2)])
+    limbs[1, 0, n // 2, n // 2] = -1.0
+    inv_1, ok_1 = cuda_dd.dd_spd_inverse_torch(t(limbs))
+    inv_5, ok_5 = cuda_xf.spd_inverse_xf_torch(t(limbs))
+    assert ok_1.tolist() == ok_5.tolist() == [True, False]
+    assert torch.equal(inv_1.view(torch.int64), inv_5.view(torch.int64))
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_spd_inverse_stacked_layout_matches_contiguous(k):
+    """xf_spd_inverse_batched on the solver's stacked (k, B, n, n) limbs
+    (K1 at k=2, K5 above) gives the wrapper's (B, k, n, n) result on the
+    same blocks, bit for bit, in the stacked layout."""
+    a = t(spd_xf(np.random.default_rng(45 + k), 3, 4, k, 1e4))
+    inv, ok = (cuda_dd.dd_spd_inverse if k == 2 else cuda_xf.spd_inverse_xf)(a)
+    inv_s, ok_s = cuda_xf.xf_spd_inverse_batched(a.transpose(0, 1).contiguous())
+    assert ok.tolist() == ok_s.tolist() == [True] * 3
+    assert_bitwise(inv.transpose(0, 1), inv_s)
+
+
+def test_spd_inverse_plan_layouts_and_refusals():
+    """K1's and K5's launch description (cuda_dd._spd_inverse_plan) reads
+    the limbs where they lie: the stacked view's own strides, with no copy;
+    the output dense in the caller's axis order.  The row cap is 1024 at
+    k=2 and 256 above; other shapes and types are refused."""
+    import struct
+
+    x = torch.zeros((3, 5, 7, 7), dtype=torch.float64)  # (k, B, n, n)
+    desc, k, B, n = cuda_dd._spd_inverse_plan(x, 0)
+    assert (k, B, n) == (3, 5, 7)
+    assert struct.unpack("<9q", desc) == (3, 5, 7, 245, 49, 7, 1, 245, 49)
+    desc, k, B, n = cuda_dd._spd_inverse_plan(x.transpose(0, 1), 1)  # (B, k, n, n) view
+    assert (k, B, n) == (3, 5, 7)
+    assert struct.unpack("<9q", desc) == (3, 5, 7, 245, 49, 7, 1, 49, 147)
+    xt = x.transpose(-1, -2)
+    assert struct.unpack("<9q", cuda_dd._spd_inverse_plan(xt, 0)[0])[5:7] == (1, 7)
+    assert cuda_dd.max_rows(2) == 1024 and cuda_dd.max_rows(3) == cuda_dd.max_rows(12) == 256
+    def square(k, n):  # (1, k, n, n) of one stored zero
+        return torch.zeros((1, k, 1, 1), dtype=torch.float64).expand(1, k, n, n)
+
+    assert cuda_dd._spd_inverse_plan(square(2, 1024), 1)[3] == 1024
+    assert cuda_dd._spd_inverse_plan(square(3, 256), 1)[3] == 256
+    for bad, axis in ((square(2, 1025), 1), (square(3, 257), 1),
+                      (torch.zeros((2, 1, 3, 4), dtype=torch.float64), 0),
+                      (torch.zeros((2, 1, 3, 3), dtype=torch.float32), 0),
+                      (torch.zeros((2, 3, 3), dtype=torch.float64), 0)):
+        with pytest.raises(ValueError):
+            cuda_dd._spd_inverse_plan(bad, axis)
+
+
 # ---------------------------------------------------------------------------
 # K2: Schur pairs core
 # ---------------------------------------------------------------------------
@@ -587,8 +643,8 @@ def test_step_length_lambda_cuda_matches_reference_pallas(monkeypatch):
     monkeypatch.setattr(pallas_xf, "xf_steplen_sandwich_pallas_k", capture)
     lam_j, ok_j = _step_length_lambda_pallas(
         *([[jxf(x) for x in row] for row in blocks[key]] for key in ("M", "dM")), info)
-    lam_t, ok_t = _step_length_lambda_cuda(
-        *([[txf(x) for x in row] for row in blocks[key]] for key in ("M", "dM")), info)
+    (lam_t, ok_t), = _step_length_lambda_cuda(
+        [tuple([[txf(x) for x in row] for row in blocks[key]] for key in ("M", "dM"))], info)
     (ms, ds, w_p, ok_p), = seen
     w_t, ok_w = cuda_xf.steplen_sandwich_xf_torch(t(ms), t(ds))
     assert np.asarray(ok_p).tolist() == ok_w.tolist() == [True, True]
@@ -596,6 +652,72 @@ def test_step_length_lambda_cuda_matches_reference_pallas(monkeypatch):
     scale = max(np.max(np.abs(np.linalg.eigvalsh(x[0]))) for x in (d[0], d2[0]))
     assert bool(ok_j) and bool(ok_t)
     assert abs(float(lam_t) - float(lam_j)) <= 1e-13 * scale, (float(lam_t), float(lam_j))
+
+
+@pytest.mark.parametrize("use_cuda", [False, True])
+@pytest.mark.parametrize("k", [2, 3])
+def test_step_lengths_joint_equals_two_calls(k, use_cuda):
+    """compute_step_lengths (the solver's one step-length call, both sides
+    in one K7 launch on the card) gives the alphas and flags of two
+    compute_step_length calls, bit for bit, on the plain routes: K7's plain
+    version (use_cuda) and xf_min_eig_sym; groups of 3x3 (two blocks), 2x2
+    and 1x1 blocks on each side, one of Y's 3x3 blocks indefinite."""
+    from types import SimpleNamespace
+
+    from clrs_tpu_torch.core.solver import compute_step_length, compute_step_lengths
+
+    rng = np.random.default_rng(110 + k)
+    info = SimpleNamespace(J=2, L=[3, 1], Y_blocksizes=[[3, 2, 3], [1]])
+    sides = []
+    for side in range(2):
+        M, dM = [], []
+        for sizes in info.Y_blocksizes:
+            ms, ds = zip(*(steplen_inputs(rng, 1, n, k) for n in sizes))
+            M.append([txf(m[0]) for m in ms])
+            dM.append([txf(d[0]) for d in ds])
+        sides += [M, dM]
+    sides[2][0][2] = txf(steplen_inputs(rng, 2, 3, k)[0][1])  # indefinite
+    got = compute_step_lengths(*sides, 0.7, info, use_cuda)
+    want = (compute_step_length(sides[0], sides[1], 0.7, info, use_cuda)
+            + compute_step_length(sides[2], sides[3], 0.7, info, use_cuda))
+    assert [bool(v) for v in got[1::2]] == [bool(v) for v in want[1::2]] == [True, False]
+    assert_bitwise(torch.stack(got[0::2])[None], torch.stack(want[0::2])[None])
+
+
+def test_steplen_table_offsets_and_refusals():
+    """K7's launch table (cuda_xf._steplen_table): one entry per block of
+    every group, in order, each with its block's pointers and limb, row and
+    column strides (a transposed dM read where it lies), n, and the
+    offsets of its W and flags: each group's a dense run of the buffers.
+    Blocks beyond the row cap, of mixed shapes or types, or an M without
+    its dM are refused."""
+    rng = np.random.default_rng(120)
+    k = 3
+    groups, blocks = [], []
+    for n, B in ((6, 2), (5, 1), (6, 1), (33, 2)):
+        ms = [txf(m).limbs for m in spd_xf(rng, B, n, k, 1e3)]
+        ds = [txf(d).limbs.transpose(-1, -2) for d in spd_xf(rng, B, n, k, 1e3)]
+        groups.append((ms, ds))
+        blocks += [(m, d, n) for m, d in zip(ms, ds)]
+    k_, entries, spans, w_size, ok_size = cuda_xf._steplen_table(groups)
+    assert k_ == k and len(entries) == 6
+    assert spans == [(2, 6, 0, 0), (1, 5, 72, 12), (1, 6, 97, 17), (2, 33, 133, 23)]
+    assert (w_size, ok_size) == (133 + 2 * 33 * 33, 23 + 66)
+    w_off = ok_off = 0
+    for raw, (m, d, n) in zip(entries, blocks):
+        got = cuda_xf._STEPLEN_ENTRY.unpack(raw)
+        assert got == ((m.data_ptr(), d.data_ptr()) + m.stride() + d.stride()
+                       + (w_off, ok_off, n))
+        assert d.stride()[1:] == (1, n)
+        w_off, ok_off = w_off + n * n, ok_off + n
+    m, d = groups[0][0][0], groups[0][1][0]
+    wide = torch.zeros((k, 1, 1), dtype=torch.float64).expand(k, 257, 257)
+    for bad in ([([wide], [wide])], [([m], [m.float()])], [([m], [d[:, :5, :5]])],
+                [([m, m], [d])], [([m[:2]], [d[:2]])]):
+        with pytest.raises(ValueError):
+            cuda_xf._steplen_table(groups[:1] + bad)
+    two = torch.zeros((2, 1, 1), dtype=torch.float64).expand(2, 257, 257)
+    assert cuda_xf._steplen_table([([two], [two])])[2] == [(1, 257, 0, 0)]
 
 
 # ---------------------------------------------------------------------------

@@ -64,8 +64,7 @@ def run_iteration(phases, problem, state, pd_feas, alphas=None):
     out["corrector_R"] = (beta_c, R2)
     dx, dX, dy, dY = phases["direction"](problem, P, p, d, R2, X_inv, state[3], decomp)
     out["corrector"] = (dx, dX, dy, dY)
-    ap, ok_p = phases["steplength"](state[2], dX)
-    ad, ok_d = phases["steplength"](state[3], dY)
+    ap, ok_p, ad, ok_d = phases["steplength"](state[2], dX, state[3], dY)
     out["alpha"] = (float(ap), float(ad))
     oks = [bool(x) for x in (ok_inv, decomp["ok"], ok_p, ok_d)]
     if alphas is not None:
@@ -94,9 +93,9 @@ def reference():
     cfg = JSolverConfig(**OPTS, use_pallas_matmul=False)
     phases = j_phases(jp, cfg)
 
-    def compiled_steplength(M, dM):
+    def compiled_steplength(X, dX, Y, dY):  # both sides, as the port's phase takes them
         with jax.disable_jit(False):
-            return phases["steplength"](M, dM)
+            return phases["steplength"](X, dX) + phases["steplength"](Y, dY)
 
     with jax.disable_jit():
         out, oks = run_iteration(dict(phases, steplength=compiled_steplength), jp,
