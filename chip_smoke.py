@@ -10,26 +10,29 @@ Phases (any failure raises, and the script exits non-zero):
   2. builds the hand-written kernels (clrs_tpu_torch/csrc, one nvcc per
      source, all at once) and prints the build seconds and ptxas's
      registers and spills of the k-limb kernels at k=3, 10 and 12, of the
-     matmul and the SPD inverse also at k=2 (K3, K1);
+     matmul, the Schur block and the SPD inverse also at k=2 (K3, K2, K1),
+     and of K9;
   3. runs each kernel (K1 SPD inverse, the k=2 instance of K5's kernel,
-     also at n = 257 and 1024, K2 Schur pairs at k=2 and k,
-     K3 and K4 matmul at k=2 and k >= 3, K5 k-limb SPD inverse, K7 step-length
-     sandwich, K8 elementwise k-limb add and multiply, K9 batch-minor dd
-     SPD inverse) against its plain PyTorch version on the card, at every
-     Delsarte config-1 shape of the main path, K2, K4 and K5 at k = 3, 4,
-     6, 10, K7 at k = 2, 3, 4, 6, 10 (first the iteration's one launch
-     over both sides' 6x6 and 5x5 blocks, then each size alone), K8 at
-     every k = 2..12 (and at k >= 5
-     against xfloat's own add and multiply), K9 also against K1, and at
-     wide shapes; K3 and K4 also on operands read in place (V.mT as A and
-     as B, a broadcast batch) at k = 2, 3, 4, 6, 10, 12; K8 also on
-     broadcast operands read in place and on
-     operands of fewer limbs, K5 and K7 also at n = 1, 2, 31, 32, 33, 64,
-     65 (every shape of their halving trees) at k = 3 and 12 with one
-     indefinite block: limbs and flags must be bitwise equal; prints the
-     kernel's median time of one call, its time per call over a run of
-     back-to-back calls, the plain version's median time, and each call's
-     bound (bytes over 3.35 TB/s or FP64 instructions over their
+     also at n = 257 and 1024, K2 the Schur block at k=2 and k on the
+     pairings laid out as compute_pairings returns them, also at m=2
+     rank 2 and wide, K3 and K4 matmul at k=2 and k >= 3, K5 k-limb SPD
+     inverse, K7 step-length sandwich, K8 elementwise k-limb add and
+     multiply, K9 the dd SPD inverse for many small matrices) against its
+     plain PyTorch version on the card, at every Delsarte config-1 shape
+     of the main path, K2, K4 and K5 at k = 3, 4, 6, 10, K7 at k = 2, 3,
+     4, 6, 10 (first the iteration's one launch over both sides' 6x6 and
+     5x5 blocks, then each size alone), K8 at every k = 2..12 (and at
+     k >= 5 against xfloat's own add and multiply), K9 also against K1
+     (and K1's time beside it) at n = 1, 2, 31, 32, 33, 64, 65 and 512 on
+     B-major and batch-minor inputs, and at wide shapes; K3 and K4 also
+     on operands read in place (V.mT as A and as B, a broadcast batch) at
+     k = 2, 3, 4, 6, 10, 12; K8 also on broadcast operands read in place
+     and on operands of fewer limbs, K5 and K7 also at n = 1, 2, 31, 32,
+     33, 64, 65 (every shape of their halving trees) at k = 3 and 12 with
+     one indefinite block: limbs and flags must be bitwise equal; prints
+     the kernel's median time of one call, its time per call over a run
+     of back-to-back calls, the plain version's median time, and each
+     call's bound (bytes over 3.35 TB/s or FP64 instructions over their
      rate, 1.7e13 per second, an FMA counted as one and every exact
      product as the FMA's 2, whatever form the kernel runs; the larger);
   4. solves the Delsarte kissing-number bound in dimension 8 at 2d=10 on
@@ -59,7 +62,9 @@ Phases (any failure raises, and the script exits non-zero):
      device's busy share, the device time per launch of K8, K5, K7, K4 and
      K2, launches per iteration by kernel name with copies apart and the
      copy launches in all, the aten ops under K8's and K3/K4's call paths
-     (a copy among them fails the phase), and the step length's split
+     and the Schur block's (a copy among them fails the phase, and so does
+     a Schur block entered other than once per K2 launch), and the step
+     length's split
      between K7, the float64 Jacobi bound and xf_min_eig_sym; then the
      decomposition phase of iteration 3 of config 1 at k=2 for K1's
      device time per launch (K1 and K5 told apart by the template
@@ -192,10 +197,14 @@ def matmul_work(k, B, n, K, m, steps, Ba=None, Bb=None):
             B * n * m * steps * (c["mul"] + c["add"]))
 
 
-def schur_work(k, G, P2, T):
+def schur_work(k, G, m, T):
+    """K2: the bytes it must touch, PX and PY (m^2 T^2 each), HH (T^2) and
+    the output (P^2 T^2, P = m (m + 1) / 2) once per cluster, and 5
+    multiplies and 3 adds per output entry."""
     c = op_counts(k)
-    return (8 * k * G * T * T * (8 * P2 + 1 + P2),
-            G * P2 * T * T * (5 * c["mul"] + 3 * c["add"]))
+    P = m * (m + 1) // 2
+    return (8 * k * G * T * T * (2 * m * m + 1 + P * P),
+            G * P * P * T * T * (5 * c["mul"] + 3 * c["add"]))
 
 
 def _chol_solve_ops(k, n):
@@ -318,7 +327,17 @@ MATMUL_SHAPES = (("(6,6)x(6,11)", (1, 6, 6, 11)), ("(11,6)x(6,11)", (1, 11, 6, 1
                  ("(6,11)x(11,6)", (1, 6, 11, 6)), ("(5,5)x(5,11)", (1, 5, 5, 11)),
                  ("(11,5)x(5,11)", (1, 11, 5, 11)), ("(5,11)x(11,5)", (1, 5, 11, 5)),
                  ("signs 10x(1,1)x(1,1)", (10, 1, 1, 1)))
-SCHUR_SHAPES = (("config1 G=1 P2=1 T=11", (1, 1, 11)), ("signs G=10 P2=1 T=1", (10, 1, 1)))
+# K2's blocks (G, m, K, rmax): config 1's cluster (the two blocks' shape)
+# and its ten sign clusters as one group, then two clusters of m=2 at rank
+# 2 and the wide block (P = 6 pairs, T = 128)
+SCHUR_SHAPES = (("config1 G=1 m=1 K=11 rmax=1", (1, 1, 11, 1)),
+                ("signs G=10 m=1 K=1 rmax=1", (10, 1, 1, 1)),
+                ("G=2 m=2 K=3 rmax=2", (2, 2, 3, 2)),
+                ("wide G=1 m=3 K=64 rmax=2", (1, 3, 64, 2)))
+SCHUR_MAIN = 2  # the first two are the main path's
+# K9 beyond the config-1 shapes: every shape of the halving tree and its
+# cap, on two blocks (the second indefinite), B-major and batch-minor
+WIDE_TREE_SIZES = (1, 2, 31, 32, 33, 64, 65, 512)
 INVERSE_SHAPES = (("S_j 1x11x11", (1, 11, 1e8)), ("Q 1x10x10", (1, 10, 1e6)),
                   ("signs 10x1x1", (10, 1, 1.0)))
 ELEMWISE_SHAPES = (("()", ()), ("(11,)", (11,)), ("(6,6)", (6, 6)), ("(10,1,1)", (10, 1, 1)),
@@ -333,6 +352,16 @@ ELEMWISE_OPERANDS = (("(10,1,1)x(10,11,11)", ((10, 1, 1), 0), ((10, 11, 11), 0))
 # K5 and K7 where the halving tree changes shape (csrc/chol_xf.cuh)
 TREE_SIZES = (1, 2, 31, 32, 33, 64, 65)
 TREE_WORKERS = 4  # CPU processes for the tree rows' plain versions
+
+
+def schur_operands(rng, k, G, m, K, rmax, dev):
+    """K2's operands: pairings laid out as compute_pairings returns them
+    (transposed views of (k, G, T, m, m, T): t2 at unit stride, t1 at
+    stride m^2 T) and positive weights HH (k, G, T, T)."""
+    T = K * rmax
+    px, py = (rand_xf(rng, (G, T, m, m, T), k, dev).permute(0, 1, 3, 2, 4, 5)
+              for _ in range(2))
+    return px, py, rand_xf(rng, (G, T, T), k, dev).abs()
 
 
 def tree_inputs(k, n):
@@ -427,15 +456,18 @@ def check_kernels(dev, record, tree_futures):
         case("spd_inverse_dd", 2, f"1x{n}x{n}", cuda_dd.dd_spd_inverse,
              cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, 1, n), 3, 0, False)
 
-    # K2 at k=2: the main cluster has m=1 (one pair) and T = K*rmax = 11;
-    # the ten sign clusters go as one group of G=10 with T=1; wide P^2=36
-    for label, (G, P2, T) in SCHUR_SHAPES + (("wide P2=36 T=128", (1, 36, 128)),):
-        main = not label.startswith("wide")
-        a4, b4 = (rand_xf(rng, (G, P2, 4, T, T), 2, dev) for _ in range(2))
-        hh = rand_xf(rng, (G, T, T), 2, dev)
-        case("schur_pairs_dd", 2, label, cuda_xf.schur_pairs, cuda_xf.schur_pairs_torch,
-             (a4, b4, hh), schur_work(2, G, P2, T), 50 if main else 10, 3 if main else 2,
-             main)
+    # K2 at k=2, the whole block in one launch on the pairings as they lie:
+    # the main cluster has m=1 (one pair) and T = K*rmax = 11; the ten sign
+    # clusters go as one group of G=10 with T=1; m=2 at rank 2; wide
+    def schur_rows(k):
+        for i, (label, (G, m, K, rmax)) in enumerate(SCHUR_SHAPES):
+            main = i < SCHUR_MAIN
+            case("schur_pairs_dd" if k == 2 else "schur_pairs_xf", k, label,
+                 cuda_xf.schur_pairs, cuda_xf.schur_pairs_torch,
+                 schur_operands(rng, k, G, m, K, rmax, dev), schur_work(k, G, m, K * rmax),
+                 50 if main else 10, (3 if k < 6 else 1) if main else 1, main)
+
+    schur_rows(2)
 
     # K3: every product of the config-1 solve, and a wide batch
     for label, (B, n, K, m) in MATMUL_SHAPES + (("wide 8x256x256x256", (8, 256, 256, 256)),):
@@ -458,11 +490,7 @@ def check_kernels(dev, record, tree_futures):
     # K2, K4 and K5 at the ladder's k, at every config-1 shape
     for k in LADDER:
         plain_reps = 3 if k < 6 else 1
-        for label, (G, P2, T) in SCHUR_SHAPES:
-            a4, b4 = (rand_xf(rng, (G, P2, 4, T, T), k, dev) for _ in range(2))
-            hh = rand_xf(rng, (G, T, T), k, dev)
-            case("schur_pairs_xf", k, label, cuda_xf.schur_pairs, cuda_xf.schur_pairs_torch,
-                 (a4, b4, hh), schur_work(k, G, P2, T), 50, plain_reps, True)
+        schur_rows(k)
         for label, (B, n, K, m) in MATMUL_SHAPES:
             a, b = rand_xf(rng, (B, n, K), k, dev), rand_xf(rng, (B, K, m), k, dev)
             case("matmul_xf (K4, K6)", k, label, cuda_xf.matmul_xf, cuda_xf.matmul_xf_torch,
@@ -580,25 +608,57 @@ def check_kernels(dev, record, tree_futures):
                         f"elemwise_xf k={k} {op} {label}: not xfloat's result"
                     row["equals_xfloat"] = True
 
-    # K9 at the config-1 inverse shapes and wide, against its plain version
-    # and against K1
-    for label, (B, n, cond) in (("signs 10x1x1", (10, 1, 1.0)),
-                                ("S_j 1x11x11", (1, 11, 1e8)),
-                                ("wide 256x64x64 (1 indefinite)", (256, 64, 1e10))):
-        main = not label.startswith("wide")
-        a = spd_batch(rng, B, n, 2, cond, dev)
-        if not main:
-            a[7, 0, 5, 5] = -1e3
+    # K9 at the config-1 inverse shapes and wide, then at every shape of
+    # its halving tree and its cap on two blocks (the second indefinite),
+    # each B-major and as the batch-minor view of a (2, n, n, B) array:
+    # against its plain version and bitwise against K1, whose time on the
+    # same input stands beside it
+    def wide_row(label, a, flagged, plain=None):
+        """plain: the plain version's (outputs, ms) on the same values in
+        another layout, reused (at n = 512 it takes seconds); returns this
+        row's."""
+        B, _, n, _ = a.shape
+        main = label.startswith(("signs", "S_j"))
+        big = n > 256
+        if plain is None:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            want = cuda_dd.dd_spd_inverse_wide_torch(a)
+            end.record()
+            end.synchronize()
+            plain = (want, median_ms(lambda: cuda_dd.dd_spd_inverse_wide_torch(a), 3, warm=False)
+                     if main else start.elapsed_time(end))
         row = case("spd_inverse_dd_wide", 2, label, cuda_dd.dd_spd_inverse_wide,
-                   cuda_dd.dd_spd_inverse_wide_torch, (a,), spd_inverse_work(2, B, n),
-                   50 if main else 5, 3 if main else 1, main)
+                   lambda *_: plain[0], (a,), spd_inverse_work(2, B, n),
+                   50 if main else (2 if big else 5), 0, main, plain_ms=plain[1])
         inv_w, ok_w = cuda_dd.dd_spd_inverse_wide(a)
         inv_1, ok_1 = cuda_dd.dd_spd_inverse(a)
         assert torch.equal(ok_w, ok_1) and bits_equal(inv_w[ok_w], inv_1[ok_1]), \
             f"spd_inverse_dd_wide {label}: not K1's result"
         row["equals_K1"] = True
-        if not main:
-            assert row["flags"][7] is False, "K9: the indefinite block was not flagged"
+        row["k1_ms"] = median_ms(lambda: cuda_dd.dd_spd_inverse(a), 1 if big else 20)
+        if flagged is not None:
+            assert row["flags"][flagged] is False, \
+                f"K9 {label}: the indefinite block was not flagged"
+        return plain
+
+    def batch_minor(a):  # the (B, 2, n, n) view of a (2, n, n, B) copy of a
+        return a.permute(1, 2, 3, 0).contiguous().permute(3, 0, 1, 2)
+
+    for label, (B, n, cond) in (("signs 10x1x1", (10, 1, 1.0)),
+                                ("S_j 1x11x11", (1, 11, 1e8)),
+                                ("wide 256x64x64 (1 indefinite)", (256, 64, 1e10))):
+        a = spd_batch(rng, B, n, 2, cond, dev)
+        if B == 256:
+            a[7, 0, 5, 5] = -1e3
+        plain = wide_row(label, a, 7 if B == 256 else None)
+        if B == 256:
+            wide_row("wide 256x64x64 batch-minor", batch_minor(a), 7, plain)
+    for n in WIDE_TREE_SIZES:
+        a = spd_batch(rng, 2, n, 2, 1e6, dev)
+        a[1, 0, n // 2, n // 2] = -1.0
+        plain = wide_row(f"tree 2x{n}x{n} (1 indefinite)", a, 1)
+        wide_row(f"tree 2x{n}x{n} batch-minor", batch_minor(a), 1, plain)
     record["kernel_checks"] = rows
     return rows
 
@@ -745,7 +805,8 @@ COPY_WORDS = ("copy", "Memcpy", "Memset", "CatArray", "cat_")
 
 
 RANGES = ("K8 call path", "alpha", "alpha: K7", "alpha: float64 Jacobi",
-          "alpha: xf_min_eig_sym", "K3/K4 call path")
+          "alpha: xf_min_eig_sym", "K3/K4 call path", "Schur call path")
+CALL_PATHS = (RANGES[0], RANGES[5], RANGES[6])  # no copy may run under these
 
 
 def profile_all_kernels(dev, record, steady_it_s, check=True):
@@ -754,14 +815,15 @@ def profile_all_kernels(dev, record, steady_it_s, check=True):
     a share of the window's wall time (which the profiler stretches) and of
     the unprofiled iteration of phase 7 (steady_it_s), the device time per
     launch of K8, K5, K7, K4 and K2, launches per iteration by kernel name
-    (copies apart) and the copy launches in all, the copies that K8's and
-    K3/K4's call paths made, and how the step length (alpha) splits
-    between K7, the float64 Jacobi bound and the scalar groups'
-    xf_min_eig_sym.  Those parts, each K8 call, each matmul and alpha are
-    marked with record_function ranges while the window is open (a few us
-    per call).  check: fail on a copy under those call paths and on a
-    range that was not entered as often as its kernel launched
-    (kernel_turns.py profiles other trees without it)."""
+    (copies apart) and the copy launches in all, the copies that K8's,
+    K3/K4's and the Schur block's (K2's) call paths made, and how the step
+    length (alpha) splits between K7, the float64 Jacobi bound and the
+    scalar groups' xf_min_eig_sym.  Those parts, each K8 call, each
+    matmul, each Schur block and alpha are marked with record_function
+    ranges while the window is open (a few us per call).  check: fail on
+    a copy under those call paths and on a range that was not entered as
+    often as its kernel launched (kernel_turns.py profiles other trees
+    without it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -801,7 +863,8 @@ def profile_all_kernels(dev, record, steady_it_s, check=True):
                     for (owner, attr), label in zip(
                             ((xfloat, "_elemwise_kernel"), (solver, "compute_step_lengths"),
                              (solver, "steplen_sandwich_xf_groups"), (solver, "jacobi_min_eig"),
-                             (solver, "xf_min_eig_sym"), (core_kernels, "xf_matmul_k")),
+                             (solver, "xf_min_eig_sym"), (core_kernels, "xf_matmul_k"),
+                             (solver, "schur_block_contribution")),
                             RANGES):
                         ranged(owner, attr, label)
                     prof.start()
@@ -870,9 +933,10 @@ def profile_all_kernels(dev, record, steady_it_s, check=True):
         log(f"profile:   {n / iters:9.2f}  {us / 1e3 / iters:8.3f} ms/iter  {name[:100]}")
     for name, (n, us) in sorted(copies.items(), key=lambda kv: -kv[1][0]):
         log(f"profile:   copy {n / iters:9.2f}  {us / 1e3 / iters:8.3f} ms/iter  {name[:100]}")
-    # ops beneath K8's and the matmuls' call paths: none may copy
+    # ops beneath K8's, the matmuls' and the Schur block's call paths: none
+    # may copy
     path_ops, path_copies = {}, {}
-    for path in (RANGES[0], RANGES[5]):
+    for path in CALL_PATHS:
         ops = path_ops[path] = {}
         for e in events:
             if e.device_type != DeviceType.CPU or e.name == path:
@@ -912,11 +976,12 @@ def profile_all_kernels(dev, record, steady_it_s, check=True):
     for path, found in path_copies.items():
         assert not found, f"the {path} made copies: {found}"
     # a range that a refactor bypassed would read 0: each must be entered
-    # every iteration, and the two around one kernel once per launch
+    # every iteration, and those around one kernel once per launch
     lost = [key for key in RANGES if ranges.get(key, {}).get("calls_per_iter", 0) < 1]
     assert not lost, f"profile ranges entered less than once per iteration: {lost}"
     if kernels:
-        for key, tag in ((RANGES[0], "K8"), (RANGES[2], "K7"), (RANGES[5], "K4")):
+        for key, tag in ((RANGES[0], "K8"), (RANGES[2], "K7"), (RANGES[5], "K4"),
+                         (RANGES[6], "K2")):
             assert ranges[key]["calls_per_iter"] == per_launch[tag]["launches_per_iter"], (
                 f"range {key!r}: {ranges[key]['calls_per_iter']} calls/iter against "
                 f"{per_launch[tag]['launches_per_iter']} {tag} launches/iter")
@@ -1009,9 +1074,9 @@ def solve_dim24(dev, record):
 def ptxas_report(text: str):
     """Registers, stack and spills of the k-limb kernels (and of the
     out-of-line add and multiply of K5 and K7) at k=3, 10 and 12, of the
-    matmul and the SPD inverse also at k=2 (K3, K1), the matmul's
-    64-bit-index instances marked so, and of K9; K8's instances are named
-    by op and by the dense form."""
+    matmul, the Schur block and the SPD inverse also at k=2 (K3, K2, K1),
+    the matmul's 64-bit-index instances marked so, and of K9; K8's
+    instances are named by op and by the dense form."""
     names = ("matmul_xf_kernel", "schur_pairs_kernel", "spd_inverse_xf_kernel",
              "steplen_xf_kernel", "elemwise_xf_kernel", "xf_add_n", "xf_mul_n")
     out, cur = [], None
@@ -1020,7 +1085,7 @@ def ptxas_report(text: str):
         if m:
             fn = m.group(1)
             cur = next((f"{n} k={kk}" for n in names for kk in (2, 3, 10, 12)
-                        if f"{n}ILi{kk}E" in fn and (kk > 2 or n in names[:3:2])), None)
+                        if f"{n}ILi{kk}E" in fn and (kk > 2 or n in names[:3])), None)
             if cur and names[0] in fn and f"ILi{cur.split('=')[1]}Ex" in fn:
                 cur += " (64-bit index)"
             k8 = re.search(r"elemwise_xf_kernelILi\d+ELb([01])ELb([01])E", fn)

@@ -14,16 +14,15 @@ Index conventions (per cluster j, inner block l):
   tuple index within the cluster: idx = pair_index(r, s)*K + k
 
 ``use_cuda`` routes the products through the hand-written kernels:
-every matmul of ``_mm`` through K3 (k=2) or K4 (k >= 3), and the Schur
-core through K2 at the problem's k.  On a CPU tensor the kernels' plain
-versions run instead.
+every matmul of ``_mm`` through K3 (k=2) or K4 (k >= 3), and each Schur
+block through one launch of K2 at the problem's k.  On a CPU tensor the
+kernels' plain versions run instead.
 """
 
 from __future__ import annotations
 
 from typing import List
 
-import numpy as np
 import torch
 
 from clrs_tpu_torch.core.blockinfo import pair_list
@@ -68,41 +67,16 @@ def pairing_diag(P: XF, m: int) -> XF:
 
 def _schur_block_contribution_cuda(PX: XF, PY: XF, HH: XF, m: int, K: int,
                                    rmax: int) -> XF:
-    """Kernel-routed Schur block: gather the 8 pairing slices per
-    (pair1, pair2), run the elementwise core through K2, then the exact
-    rank segment-sum and the (pair, K) block layout (kernels.py:115-157)."""
-    pairs = pair_list(m)
-    P = len(pairs)
-    bs = PX.shape[:-4]
-    T = K * rmax
-    ar = np.empty((P * P, 4), np.int64)
-    ac = np.empty((P * P, 4), np.int64)
-    br = np.empty((P * P, 4), np.int64)
-    bc = np.empty((P * P, 4), np.int64)
-    for i1, (r1, s1) in enumerate(pairs):
-        for i2, (r2, s2) in enumerate(pairs):
-            q = i1 * P + i2
-            ar[q] = (s1, r1, s1, r1)
-            ac[q] = (r2, r2, s2, s2)
-            br[q] = (s2, s2, r2, r2)
-            bc[q] = (r1, s1, r1, s1)
-    dev = PX.device
-    ia = torch.from_numpy(ar * m + ac).to(dev)
-    ib = torch.from_numpy(br * m + bc).to(dev)
-    nl = PX.limbs.ndim
-    k = PX.k
-    # (k, *bs, m, T, m, T) -> (k, G, m*m, T, T) with [r*m + s, t1, t2]
-    def mm_first(x):
-        x = x.permute(tuple(range(nl - 4)) + (nl - 4, nl - 2, nl - 3, nl - 1))
-        return x.reshape(k, -1, m * m, T, T)
-
-    A4 = mm_first(PX.limbs)[:, :, ia]  # (k, G, P2, 4, T, T): PX[ar, t1, ac, t2]
-    B4 = mm_first(PY.limbs)[:, :, ib].transpose(-1, -2)  # PY[br, t2, bc, t1]
-    HHg = HH.limbs.reshape(k, -1, T, T)
-    W = XF(schur_pairs(A4, B4, HHg).reshape((k,) + bs + (P, P, K, rmax, K, rmax)))
-    blk = xf_sum(xf_sum(W, axis=-1), axis=-2)  # (..., P, P, K, K)
-    nb = len(bs)
-    return blk.transpose(_perm(nb, 0, 2, 1, 3)).reshape(bs + (P * K, P * K))
+    """Kernel-routed Schur block: K2 forms every (pair, t1, pair, t2) entry
+    in one launch, reading PX, PY and HH where they lie, then the exact
+    rank segment-sum on its layout (t2's rank slots first, then t1's, the
+    adds of the reference's, kernels.py:150-155); at rmax = 1 the sums add
+    nothing and the block is a reshape of K2's output."""
+    W = XF(schur_pairs(PX.limbs, PY.limbs, HH.limbs))  # (k, *bs, P, T, P, T)
+    bs, P = W.shape[:-4], W.shape[-4]
+    W = W.reshape(bs + (P, K, rmax, P, K, rmax))
+    blk = xf_sum(xf_sum(W, axis=-1), axis=-3)  # (..., P, K, P, K)
+    return blk.reshape(bs + (P * K, P * K))
 
 
 def schur_block_contribution(

@@ -55,8 +55,9 @@ __device__ __forceinline__ void two_prod(double a, double b, double& p, double& 
 // and the split halves' products do not underflow); zeros of either
 // sign included.  Outside that range Dekker's e is inf, NaN or
 // inexact and this one is still a*b - p rounded once.  Only the matmul
-// (K3, and K4 at k <= 4) takes it, through the FMA flag of dd_mul and
-// xf_mul; every other kernel, and every plain version, keeps Dekker's.
+// (K3, and K4 at k <= 4) and the Schur block (K2 at k <= 4) take it,
+// through the FMA flag of dd_mul and xf_mul; every other kernel, and
+// every plain version, keeps Dekker's.
 __device__ __forceinline__ void two_prod_fma(double a, double b, double& p, double& e) {
   p = a * b;
   e = __fma_rn(a, b, -p);

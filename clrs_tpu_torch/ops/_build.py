@@ -40,8 +40,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # desc (9 int64: ops/cuda_dd._spd_inverse_plan), a, out, okf, scratch, stream
     "clrs_spd_inverse_xf": [ctypes.c_char_p, _P, _P, _P, _P, _P],
-    # k, a4, b4, hh, out, G, P2, T, stream
-    "clrs_schur_pairs": [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    # desc (22 int64: ops/cuda_xf._schur_plan), px, py, hh, out, stream
+    "clrs_schur_pairs": [ctypes.c_char_p, _P, _P, _P, _P, _P],
     # desc (20 int64: ops/cuda_xf._matmul_plan), a, b, c, stream
     "clrs_matmul_xf": [ctypes.c_char_p, _P, _P, _P, _P],
     # test-only (tests/test_torch_cuda.py): a, b, p, e, p (Dekker), e (Dekker), n, stream
@@ -51,8 +51,8 @@ _SIGNATURES = {
     "clrs_steplen_xf_capacity": [],
     # desc (20 int64: ops/cuda_xf._elemwise_plan), a, b, out, stream
     "clrs_elemwise_xf": [ctypes.c_char_p, _P, _P, _P, _P],
-    # a, out, okf, scratch, B, n, np2, stream
-    "clrs_spd_inverse_dd_wide": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # desc (10 int64: ops/cuda_dd._wide_plan), a, out, okf, scratch, stream
+    "clrs_spd_inverse_dd_wide": [ctypes.c_char_p, _P, _P, _P, _P, _P],
 }
 
 _lib = None

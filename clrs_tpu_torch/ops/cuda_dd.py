@@ -23,12 +23,12 @@ kernel for K1's and K5's wrappers and for ``cuda_xf.xf_spd_inverse_batched``
 (the solver's stacked layout), on operands read in place.
 
 K9 is ``csrc/spd_inverse_dd_wide.cu`` (replaces
-``pallas_dd._spd_inverse_wide_kernel``): K1's sequences in the
-batch-minor layout (2, n, n, B).  The Pallas wrapper pads the batch with
-identity blocks to whole chunks of its grid; the kernel's last thread
-block simply runs short, and every matrix is independent, so nothing is
-padded here.  ``dd_spd_inverse_wide`` is its wrapper; like the
-reference's, no solver route calls it.
+``pallas_dd._spd_inverse_wide_kernel``): K1's function, bit for bit, for
+many small matrices at once, a team of warps per matrix and several
+matrices per thread block, the input read in place at any strides (the
+reference's batch-minor (2, n, n, B) layout as a view included).
+``dd_spd_inverse_wide`` is its wrapper; like the reference's, no solver
+route calls it.
 """
 
 from __future__ import annotations
@@ -176,33 +176,81 @@ def dd_spd_inverse_wide_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.
     return dd_spd_inverse_torch(limbs)
 
 
+WIDE_MAX_ROWS = 512  # csrc/spd_inverse_dd_wide.cu: kMaxRows
+WIDE_LANE_TERMS = 16  # kLaneTerms: the terms of a dot product a lane holds at most
+WIDE_MAX_THREADS = 256  # kMaxThreads
+WIDE_PAIR_SHARED = 115712  # shared memory of a block that leaves two blocks an SM
+WIDE_MAX_SHARED = 232448  # kMaxShared: an H100 block's dynamic shared memory
+WIDE_CARD_THREADS = 132 * 2048  # the threads an H100 holds at once
+
+
+def _wide_plan(x: torch.Tensor):
+    """The description csrc/spd_inverse_dd_wide.cu's C entry takes for K9
+    on x (B, 2, n, n), read in place at its strides, and (B, n, the
+    float64 scratch it needs).  A matrix takes a team of threads, a group
+    of G lanes per row (per column in the solve) in whole warps up to 256
+    threads: G the widest power of two that fills the team, at most 32 and
+    np2 (the power of two >= n), at least np2 / 16 (16 terms a lane), and
+    halved while the batch's teams would not fit on the card at once, so
+    that a lone small matrix takes short dot products and a wide batch
+    idles fewer lanes.  L (packed) and W (transposed, column stride ldw = 1
+    mod 8) live in shared memory while one matrix fits in a block, and as
+    many matrices share a block as fit in 256 threads and leave two blocks
+    an SM; above that in global scratch.  Raises on what the kernel does
+    not take."""
+    if x.dtype != F64 or x.ndim != 4 or x.shape[1] != 2 or x.shape[2] != x.shape[3]:
+        raise ValueError(f"dd_spd_inverse_wide: need (B, 2, n, n) float64, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    B, _, n, _ = x.shape
+    if n > WIDE_MAX_ROWS:
+        raise ValueError(f"dd_spd_inverse_wide: n={n} > {WIDE_MAX_ROWS}")
+    np2 = 1 << max(n - 1, 0).bit_length()
+    least = max(1, np2 // WIDE_LANE_TERMS)
+
+    def team(G):
+        return min(WIDE_MAX_THREADS, max(32, -(-n * G // 32) * 32))
+
+    G = max(least, min(np2, 32, 1 << max(WIDE_MAX_THREADS // max(n, 1), 1).bit_length() - 1))
+    while G > least and B * team(G) > WIDE_CARD_THREADS:
+        G //= 2
+    ldw = -(-n // 8) * 8 + 1
+    lw = n * (n + 1) // 2 + n * ldw  # double2 slots of L and W
+    in_shared = 16 * (lw + 2 * n + 1) <= WIDE_MAX_SHARED
+    per_team = 16 * ((lw if in_shared else 0) + 2 * n + 1)
+    teams = max(1, min(WIDE_MAX_THREADS // team(G), WIDE_PAIR_SHARED // per_team, B))
+    st = x.stride()
+    desc = struct.pack("<11q", B, n, st[0], st[1], st[2], st[3], team(G), teams,
+                       int(in_shared), ldw, G)
+    return desc, B, n, 0 if in_shared else 2 * B * lw
+
+
+_wide_plans = {}
+
+
 def dd_spd_inverse_wide(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K9 wrapper: limbs (B, 2, n, n) float64 -> (inv, ok (B,)).  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    """K9 wrapper: limbs (B, 2, n, n) float64, n <= 512, any strides (the
+    batch-minor view ``x.permute(3, 0, 1, 2)`` of a (2, n, n, B) array
+    included) -> (inv (B, 2, n, n) dense, ok (B,)), bit for bit K1's.  A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    on limbs where they lie, the description computed once for each
+    layout and kept."""
     if limbs.device.type == "cpu":
         return dd_spd_inverse_wide_torch(limbs)
     if limbs.device.type != "cuda":
         raise ValueError(f"dd_spd_inverse_wide: unsupported device {limbs.device}")
-    B, two, n, n2 = limbs.shape
-    if two != 2 or n != n2 or limbs.dtype != F64:
-        raise ValueError(f"dd_spd_inverse_wide: need (B, 2, n, n) float64, got "
-                         f"{tuple(limbs.shape)} {limbs.dtype}")
-    if n > 512:
-        raise ValueError(f"dd_spd_inverse_wide: n={n} > 512 (one thread per row, at "
-                         "most 512 a block)")
-    x = limbs.permute(1, 2, 3, 0).contiguous()
-    np2 = 1
-    while np2 < n:
-        np2 *= 2
-    out = torch.empty_like(x)
-    okf = torch.empty((n, B), dtype=F64, device=x.device)
-    scratch = torch.empty((B * (4 * n * n + 2 * n * np2),), dtype=F64, device=x.device)
-    rc = _build.library().clrs_spd_inverse_dd_wide(
-        x.data_ptr(), out.data_ptr(), okf.data_ptr(), scratch.data_ptr(), B, n, np2,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "clrs_spd_inverse_dd_wide")
-    dd_spd_inverse_wide.launches += 1
-    return out.permute(3, 0, 1, 2), torch.all(okf > 0.5, dim=0)
+    key = (limbs.shape, limbs.stride(), limbs.dtype, limbs.get_device())
+    desc, B, n, scratch_len = _build.cached_plan(_wide_plans, key, _wide_plan, limbs)
+    out = limbs.new_empty((B, 2, n, n))
+    okf = limbs.new_empty((B,))
+    if B and n:
+        scratch = limbs.new_empty((scratch_len,)) if scratch_len else None
+        rc = _build.library().clrs_spd_inverse_dd_wide(
+            desc, limbs.data_ptr(), out.data_ptr(), okf.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, _build.stream(limbs))
+        if rc:
+            _build.check(rc, "clrs_spd_inverse_dd_wide")
+        dd_spd_inverse_wide.launches += 1
+    return out, okf > 0.5
 
 
 dd_spd_inverse_wide.launches = 0

@@ -1,13 +1,14 @@
 """The kernels of ``pallas_xf.py``, each beside its plain PyTorch version.
 
 K2 is ``csrc/schur_pairs.cu`` (replaces ``pallas_xf._schur_pairs_kernel_k``
-at every k): the elementwise Schur core w = ((a1 b1 + a2 b2) + (a3 b3 +
-a4 b4)) HH.  K3 and K4 are the k=2 and k >= 3 instances of
-``csrc/matmul_xf.cu``: the batched k-limb matmul by sequential rank-1
-accumulation, operands read in place.  K3 (replaces
-``pallas_xf._matmul_kernel``) runs the contraction as it is; K4 (replaces
-``pallas_xf._matmul_kernel_k`` and its tiled form K6) zero-pads it to a
-multiple of 8, as the Pallas wrappers pad it.  K5 is the k >= 3 instances
+at every k, and the gather that fed it): the whole Schur block of a group
+of clusters, w = ((a0 b0 + a1 b1) + (a2 b2 + a3 b3)) HH for every pair of
+pairs, in one launch on the pairings read in place.  K3 and K4 are the
+k=2 and k >= 3 instances of ``csrc/matmul_xf.cu``: the batched k-limb
+matmul by sequential rank-1 accumulation, operands read in place.  K3
+(replaces ``pallas_xf._matmul_kernel``) runs the contraction as it is;
+K4 (replaces ``pallas_xf._matmul_kernel_k`` and its tiled form K6)
+zero-pads it to a multiple of 8, as the Pallas wrappers pad it.  K5 is the k >= 3 instances
 of ``csrc/spd_inverse_xf.cu`` (replaces
 ``pallas_xf._spd_inverse_kernel_k``): the batched SPD inverse, whose k=2
 instance is K1 (``cuda_dd.py``).  K7 is ``csrc/steplen_xf.cu`` (replaces
@@ -24,15 +25,16 @@ kernel for a CUDA tensor (or raises), counting launches in its
 ``launches`` attribute.  The plain versions perform the kernels'
 operations in the kernels' order (K3 on ``xfloat``'s dd sequences, the
 others on ``ops/xops.py``, the kernels' own arithmetic), so the two agree
-bit for bit.  K3 and K4 at k <= 4 form their exact products by a fused
-multiply-add, their plain versions by Dekker's splitting: the same bits
-on the kernels' range (``csrc/eft.cuh``: two_prod_fma).  The sequential
-accumulations differ from ``xfloat.xf_matmul``'s product tree in the low
+bit for bit.  K2, K3 and K4 at k <= 4 form their exact products by a
+fused multiply-add, their plain versions by Dekker's splitting: the same
+bits on the kernels' range (``csrc/eft.cuh``: two_prod_fma).  The
+sequential accumulations differ from ``xfloat.xf_matmul``'s product tree in the low
 limbs, by design, as on the TPU.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 from typing import Tuple
 
@@ -63,67 +65,161 @@ def _check_cuda(name: str, *ts: torch.Tensor):
             raise ValueError(f"{name}: need float64 limbs, got {t.dtype}")
 
 
-def _merged_axes(shape, a_shape, a_strides, b_shape, b_strides):
-    """The axes K3/K4's and K8's kernels walk for two operands broadcast to
-    `shape` (operand axes right-aligned with it): (dims, element strides
-    of a, of b), a stride 0 where the operand is broadcast, axes of size 1
-    dropped and neighbouring axes merged wherever both operands step
-    evenly across them."""
+def _merged_axes(shape, *operands):
+    """The axes K2's, K3/K4's and K8's kernels walk for operands, each a
+    (shape, strides) pair, broadcast to `shape` (operand axes
+    right-aligned with it): (dims, [the element strides of each operand]),
+    a stride 0 where an operand is broadcast, axes of size 1 dropped and
+    neighbouring axes merged wherever every operand steps evenly across
+    them."""
     def strides(xs, st):
         off = len(shape) - len(xs)
         return [st[i - off] if i >= off and xs[i - off] == d else 0
                 for i, d in enumerate(shape)]
 
-    dims, sa, sb = [], [], []
-    for d, x, y in zip(shape, strides(a_shape, a_strides), strides(b_shape, b_strides)):
+    cols = [strides(xs, st) for xs, st in operands]
+    dims, out = [], [[] for _ in operands]
+    for i, d in enumerate(shape):
         if d == 1:
             continue
-        if dims and sa[-1] == x * d and sb[-1] == y * d:
+        if dims and all(o[-1] == c[i] * d for o, c in zip(out, cols)):
             dims[-1] *= d
-            sa[-1], sb[-1] = x, y
+            for o, c in zip(out, cols):
+                o[-1] = c[i]
         else:
             dims.append(d)
-            sa.append(x)
-            sb.append(y)
-    return dims, sa, sb
+            for o, c in zip(out, cols):
+                o.append(c[i])
+    return dims, out
+
+
+_FMA_RANGE = """
+    On the card the exact products (at k <= 4) are formed by the fused
+    multiply-add (csrc/eft.cuh: two_prod_fma), on the CPU by Dekker's
+    splitting: the two give the same limbs, bit for bit, wherever every
+    pair of limbs x, y that the multiply takes exactly has |x|, |y| <
+    2^996, |x y| < 2^1023 and exponent(x) + exponent(y) >= -969 (zeros of
+    either sign included).  Outside that range the card's limbs differ
+    from the plain version's and from the JAX reference's: where the
+    split overflows the plain version gives NaN and the card a finite
+    product; where the error term underflows the card's is x y - p
+    rounded once and the plain version's may be inexact."""
 
 
 # ---------------------------------------------------------------------------
-# K2: Schur pairs core
+# K2: the Schur block
 # ---------------------------------------------------------------------------
 
 
-def schur_pairs_torch(a4: torch.Tensor, b4: torch.Tensor,
-                      hh: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: a4, b4 (k, G, P2, 4, T, T), hh (k, G, T, T) ->
-    (k, G, P2, T, T)."""
-    k = a4.shape[0]
-    p = [xops.mul([a4[q, :, :, i] for q in range(k)],
-                  [b4[q, :, :, i] for q in range(k)]) for i in range(4)]
+@functools.lru_cache(maxsize=None)
+def _schur_indices(m: int):
+    """K2's operand indices for m: (ar, ac, br, bc), each (P, P, 4), so
+    that for pairs i1 = (r1, s1), i2 = (r2, s2) of core/blockinfo.py:
+    pair_list the four products read a_i = PX[ar, t1, ac, t2] and b_i =
+    PY[br, t2, bc, t1] (csrc/schur_pairs.cu)."""
+    pairs = [(r, s) for r in range(m) for s in range(r + 1)]
+    idx = torch.tensor([[[(s1, r1, s1, r1), (r2, r2, s2, s2), (s2, s2, r2, r2),
+                          (r1, s1, r1, s1)] for r2, s2 in pairs] for r1, s1 in pairs])
+    return tuple(idx[:, :, j] for j in range(4))
+
+
+def schur_pairs_torch(px: torch.Tensor, py: torch.Tensor, hh: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: px, py (k, *bs, m, T, m, T) and hh (k, *bs, T,
+    T), any strides, the batch axes broadcast -> w (k, *batch, P, T, P, T),
+    P = m (m + 1) / 2, w[i1, t1, i2, t2] = ((a0 b0 + a1 b1) + (a2 b2 + a3
+    b3)) HH[t1, t2] with a_i = px[ar_i, t1, ac_i, t2], b_i = py[br_i, t2,
+    bc_i, t1] (_schur_indices), on ``xops``: the kernel's operations in its
+    order, every pair of pairs at once."""
+    k, m = px.shape[0], px.shape[-4]
+    ar, ac, br, bc = _schur_indices(m)
+    # pa[..., t1, t2, r, s] = px[r, t1, s, t2], pb[..., t1, t2, r, s] = py[r, t2, s, t1]
+    pa = px.movedim((-4, -2), (-2, -1))
+    pb = py.movedim((-4, -2), (-2, -1)).transpose(-3, -4)
+    a, b = pa[..., ar, ac], pb[..., br, bc]  # (k, *bs, T, T, P, P, 4)
+    p = [xops.mul(list(a[..., i].unbind(0)), list(b[..., i].unbind(0))) for i in range(4)]
     s = xops.add(xops.add(p[0], p[1]), xops.add(p[2], p[3]))
-    return torch.stack(xops.mul(s, [hh[q][:, None] for q in range(k)]))
+    w = torch.stack(xops.mul(s, [x[..., None, None] for x in hh.unbind(0)]))
+    return w.permute(tuple(range(w.ndim - 4)) + (w.ndim - 2, w.ndim - 4, w.ndim - 1,
+                                                  w.ndim - 3)).contiguous()
 
 
-def schur_pairs(a4: torch.Tensor, b4: torch.Tensor, hh: torch.Tensor) -> torch.Tensor:
-    """K2 wrapper (shapes as schur_pairs_torch)."""
-    if a4.device.type == "cpu":
-        return schur_pairs_torch(a4, b4, hh)
-    _check_cuda("schur_pairs", a4, b4, hh)
-    k, G, P2, four, T, T2 = a4.shape
-    if four != 4 or T != T2 or tuple(b4.shape) != tuple(a4.shape) \
-            or tuple(hh.shape) != (k, G, T, T):
-        raise ValueError(f"schur_pairs: bad shapes {tuple(a4.shape)} "
-                         f"{tuple(b4.shape)} {tuple(hh.shape)}")
-    a4, b4, hh = a4.contiguous(), b4.contiguous(), hh.contiguous()
-    out = torch.empty((k, G, P2, T, T), dtype=F64, device=a4.device)
-    rc = _build.library().clrs_schur_pairs(
-        k, a4.data_ptr(), b4.data_ptr(), hh.data_ptr(), out.data_ptr(), G, P2, T,
-        _build.stream(a4))
-    _build.check(rc, "clrs_schur_pairs", k)
-    schur_pairs.launches += 1
+SCHUR_ROW = 34  # csrc/schur_pairs.cu: kRow, the doubles of a staged row
+SCHUR_MAX_TILE_T1 = 8  # kMaxTileT1
+SCHUR_SHARED_BUDGET = 100 * 1024  # the staged slices that leave two blocks an SM
+SCHUR_MAX_SHARED = 232448  # kMaxShared: an H100 block's dynamic shared memory
+
+
+def _schur_shared(k: int, m: int, ty: int) -> int:
+    """Bytes of K2's staged PY slices: 2 m slices of k limbs, ty rows."""
+    return 8 * 2 * m * k * ty * SCHUR_ROW
+
+
+def _schur_plan(px: torch.Tensor, py: torch.Tensor, hh: torch.Tensor):
+    """The description csrc/schur_pairs.cu's C entry takes for K2 on px,
+    py (k, *bs, m, T, m, T) and hh (k, *bs, T, T), each read in place at
+    its strides, the batch axes broadcast (stride 0 where an operand has
+    size 1 or lacks the axis) and merged into one; the output shape (k,
+    *batch, P, T, P, T) and its element count.  The tile's rows t1 are the
+    power of two >= T up to 8, halved while the staged slices exceed
+    SCHUR_SHARED_BUDGET.  Raises on what the kernel does not take."""
+    ops = (px, py, hh)
+    if any(x.dtype != F64 for x in ops) or len({x.device for x in ops}) != 1:
+        raise ValueError("schur_pairs: need float64 limbs on one device, got "
+                         + ", ".join(f"{x.dtype} on {x.device}" for x in ops))
+    if px.ndim < 5 or py.ndim < 5 or hh.ndim < 3:
+        raise ValueError(f"schur_pairs: bad shapes {tuple(px.shape)} {tuple(py.shape)} "
+                         f"{tuple(hh.shape)}")
+    k, m, T = px.shape[0], px.shape[-4], px.shape[-1]
+    if (px.shape[-4:] != (m, T, m, T) or py.shape[-4:] != (m, T, m, T)
+            or hh.shape[-2:] != (T, T) or py.shape[0] != k or hh.shape[0] != k or m < 1):
+        raise ValueError(f"schur_pairs: bad shapes {tuple(px.shape)} {tuple(py.shape)} "
+                         f"{tuple(hh.shape)}")
+    _check_k(k)
+    batch = tuple(_broadcast_shape(px.shape[1:-4], py.shape[1:-4], hh.shape[1:-2]))
+    dims, strides = _merged_axes(batch, (px.shape[1:-4], px.stride()[1:-4]),
+                                 (py.shape[1:-4], py.stride()[1:-4]),
+                                 (hh.shape[1:-2], hh.stride()[1:-2]))
+    if len(dims) > 1:
+        raise ValueError(f"schur_pairs: batch {batch} takes {len(dims)} axes, the kernel 1")
+    G = dims[0] if dims else 1
+    sx, sy, sh = (s[0] if s else 0 for s in strides)
+    ty = SCHUR_MAX_TILE_T1
+    while ty > 1 and (ty // 2 >= T or _schur_shared(k, m, ty) > SCHUR_SHARED_BUDGET):
+        ty //= 2
+    if _schur_shared(k, m, ty) > SCHUR_MAX_SHARED:
+        raise ValueError(f"schur_pairs: m={m} at k={k} stages {_schur_shared(k, m, 1)} bytes "
+                         f"a row, above {SCHUR_MAX_SHARED}")
+    P = m * (m + 1) // 2
+    desc = struct.pack("<22q", k, G, m, T, P, ty, px.stride(0), sx, *px.stride()[-4:],
+                       py.stride(0), sy, *py.stride()[-4:], hh.stride(0), sh, *hh.stride()[-2:])
+    return desc, (k,) + batch + (P, T, P, T), G * P * T * P * T
+
+
+_schur_plans = {}
+
+
+def schur_pairs(px: torch.Tensor, py: torch.Tensor, hh: torch.Tensor) -> torch.Tensor:
+    """K2 wrapper (shapes as schur_pairs_torch): one launch of
+    csrc/schur_pairs.cu, px, py and hh read where they lie (the transposed
+    views compute_pairings returns, broadcast batches); the output is a
+    fresh contiguous (k, *batch, P, T, P, T).  The description is computed
+    once for each layout of the three and kept."""
+    if _on_cpu("schur_pairs", px, py, hh):
+        return schur_pairs_torch(px, py, hh)
+    key = (px.shape, px.stride(), py.shape, py.stride(), hh.shape, hh.stride(), px.dtype,
+           py.dtype, hh.dtype, px.get_device(), py.get_device(), hh.get_device())
+    desc, shape, N = _build.cached_plan(_schur_plans, key, _schur_plan, px, py, hh)
+    out = px.new_empty(shape)
+    if N:
+        rc = _build.library().clrs_schur_pairs(desc, px.data_ptr(), py.data_ptr(),
+                                               hh.data_ptr(), out.data_ptr(), _build.stream(px))
+        if rc:
+            _build.check(rc, "clrs_schur_pairs", shape[0])
+        schur_pairs.launches += 1
     return out
 
 
+schur_pairs.__doc__ += _FMA_RANGE
 schur_pairs.launches = 0
 
 
@@ -207,8 +303,8 @@ def _matmul_plan(a: torch.Tensor, b: torch.Tensor):
     n, K = a.shape[-2:]
     m = b.shape[-1]
 
-    dims, sa, sb = _merged_axes(batch, a.shape[1:-2], a.stride()[1:-2], b.shape[1:-2],
-                                b.stride()[1:-2])
+    dims, (sa, sb) = _merged_axes(batch, (a.shape[1:-2], a.stride()[1:-2]),
+                                  (b.shape[1:-2], b.stride()[1:-2]))
     if len(dims) > MATMUL_MAX_BATCH_AXES:
         raise ValueError(f"matmul: batch {batch} takes {len(dims)} axes, the kernel "
                          f"{MATMUL_MAX_BATCH_AXES}")
@@ -243,27 +339,14 @@ def _matmul(wrapper, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _on_cpu(name: str, a: torch.Tensor, b: torch.Tensor) -> bool:
+def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
     """True for CPU operands (the plain version's), False for CUDA ones;
     raises for other devices."""
-    if a.is_cuda:
+    if ts[0].is_cuda:
         return False
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    if all(t.device.type == "cpu" for t in ts):
         return True
-    raise ValueError(f"{name}: unsupported devices {a.device}, {b.device}")
-
-
-_FMA_RANGE = """
-    On the card the exact products (at k <= 4) are formed by the fused
-    multiply-add (csrc/eft.cuh: two_prod_fma), on the CPU by Dekker's
-    splitting: the two give the same limbs, bit for bit, wherever every
-    pair of limbs x, y that the multiply takes exactly has |x|, |y| <
-    2^996, |x y| < 2^1023 and exponent(x) + exponent(y) >= -969 (zeros of
-    either sign included).  Outside that range the card's limbs differ
-    from the plain version's and from the JAX reference's: where the
-    split overflows the plain version gives NaN and the card a finite
-    product; where the error term underflows the card's is x y - p
-    rounded once and the plain version's may be inexact."""
+    raise ValueError(f"{name}: unsupported devices " + ", ".join(str(t.device) for t in ts))
 
 
 def dd_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -550,8 +633,8 @@ def _elemwise_plan(op: str, a: torch.Tensor, b: torch.Tensor):
     _check_k(k)
     shape = tuple(_broadcast_shape(a.shape[1:], b.shape[1:]))
 
-    dims, sa, sb = _merged_axes(shape, a.shape[1:], a.stride()[1:], b.shape[1:],
-                                b.stride()[1:])
+    dims, (sa, sb) = _merged_axes(shape, (a.shape[1:], a.stride()[1:]),
+                                  (b.shape[1:], b.stride()[1:]))
     if len(dims) > ELEMWISE_MAX_AXES:
         raise ValueError(f"elemwise_xf: {shape} takes {len(dims)} axes, the kernel "
                          f"{ELEMWISE_MAX_AXES}")

@@ -1,5 +1,5 @@
-"""Time the port's K1, K3, K4, K5, K7 and K8 and the routes of config 1 in
-one source tree, so that two trees can be compared in turns on one card.
+"""Time the port's kernels and the routes of config 1 in one source tree,
+so that two trees can be compared in turns on one card.
 
     python clrs_tpu_torch/tools/kernel_turns.py TREE LABEL OUT.json [--matmul]
 
@@ -17,10 +17,18 @@ K4 (k=3) at every
 main-path shape of ``chip_smoke.MATMUL_SHAPES`` and wide, through their
 wrappers, and on the solver's transposed and broadcast operands through
 ``xf_matmul_k``; K4 at every k = 4..12 on config 1's (6,6)x(6,11) and
-(6,11)x(11,6) products.  It also records each matmul kernel's SASS as
-``cuobjdump`` reads it from TREE's library: instructions, FP64 adds,
-multiplies and FMAs, local-memory loads and stores, and registers and
-stack.  Then, unless ``--matmul`` is given (the matmul cases only): K8;
+(6,11)x(11,6) products.  It also records the SASS of each matmul, Schur
+block (K2) and K9 kernel as ``cuobjdump`` reads it from TREE's library:
+instructions, FP64 adds, multiplies and FMAs, local-memory loads and
+stores, and registers and stack.  Then, unless ``--matmul`` is given (the
+matmul cases only): K2 through its call path,
+``core.kernels.schur_block_contribution(..., use_cuda=True)`` on the
+pairings laid out as compute_pairings returns them, at every
+``chip_smoke.SCHUR_SHAPES`` entry at k=2 and 3 (the kernel's device time
+per launch, and the other launches of a call: the index copies, gathers
+and transposes of a tree that has them); K9 at the config-1 inverse
+shapes, wide 256x64x64 (B-major and batch-minor) and on two blocks of 33
+and 64 rows; K8;
 K1 (k=2) at S_j 11x11, Q 10x10, the signs 10x1x1, wide 256x64x64 and one
 block of 257 and of 1024 rows (fewer repetitions); K5
 at k=3 and 10; K7 per block size and, as "iteration", the K7 work of one
@@ -92,9 +100,9 @@ def case(label_tree, rows, kernel, label, fn, reps=50, count=200, profiled=20):
           f"x {launches:.2f}  other launches/call {other_launches:.2f}", flush=True)
 
 
-def sass(library, word="matmul"):
-    """Per kernel function of the library whose name holds word: SASS
-    instructions by kind (cuobjdump -sass), and registers and stack
+def sass(library, words=("matmul", "schur_pairs", "spd_inverse_dd_wide")):
+    """Per kernel function of the library whose name holds one of words:
+    SASS instructions by kind (cuobjdump -sass), and registers and stack
     (cuobjdump -res-usage)."""
     from clrs_tpu_torch.ops import _build
 
@@ -108,7 +116,7 @@ def sass(library, word="matmul"):
     for line in runs[0].stdout.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            fn = m.group(1) if word in m.group(1) else None
+            fn = m.group(1) if any(w in m.group(1) for w in words) else None
             continue
         op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if fn and op:
@@ -153,6 +161,27 @@ def kernels(label_tree, matmul_only=False):
             add("matmul_", f"wrapper k={k} {label}", lambda a=a, b=b: cuda_xf.matmul_xf(a, b))
     if matmul_only:
         return rows
+
+    from clrs_tpu_torch.core import kernels as core_kernels
+
+    for k in (2, 3):
+        for label, (G, m, K, rmax) in smoke.SCHUR_SHAPES:
+            px, py, _ = smoke.schur_operands(rng, k, G, m, K, rmax, DEV)
+            PX, PY = XF(px), XF(py)
+            H = XF(smoke.rand_xf(rng, (G, K * rmax), k, DEV))
+            add("schur_pairs_kernel", f"call path k={k} {label}",
+                lambda PX=PX, PY=PY, H=H, m=m, K=K, rmax=rmax:
+                core_kernels.schur_block_contribution(PX, PY, H, m, K, rmax, use_cuda=True))
+    for label, (B, n, cond) in smoke.INVERSE_SHAPES[::2] + (("wide 256x64x64", (256, 64, 1e10)),
+                                                           ("2x33x33", (2, 33, 1e6)),
+                                                           ("2x64x64", (2, 64, 1e6))):
+        a = smoke.spd_batch(rng, B, n, 2, cond, DEV)
+        layouts = (("", a),) + ((" batch-minor", a.permute(1, 2, 3, 0).contiguous()
+                                 .permute(3, 0, 1, 2)),) * (B == 256)
+        for tag, x in layouts:
+            add("spd_inverse_dd_wide_kernel", f"K9 k=2 {label}{tag}",
+                lambda x=x: cuda_dd.dd_spd_inverse_wide(x), reps=5 if B == 256 else 20,
+                count=10 if B == 256 else 50)
 
     for k, ops in ((3, ("add", "mul")), (10, ("mul",))):
         for shape in ((), (11,), (6, 6), (11, 11)):

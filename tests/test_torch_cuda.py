@@ -3,8 +3,10 @@ plain PyTorch version (the comparison that chip_smoke.py also makes at the
 main path's and at wide shapes; K8 also on broadcast and mixed-limb
 operands, K1 at n = 1..65, 257 and 1024, K5 and K7 at every shape of their
 dot products' halving tree at every k, K7 on one launch of blocks of every
-size).  These tests need an NVIDIA GPU and nvcc and skip elsewhere; the
-file imports no JAX, so it runs on the card's machine:
+size, K2 on the pairings as compute_pairings lays them out, copied and
+broadcast, K9 against K1 at n = 1..65, 257 and 512 on both layouts and
+on special values).  These tests need an NVIDIA GPU and nvcc and skip
+elsewhere; the file imports no JAX, so it runs on the card's machine:
 python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
 """
 
@@ -92,14 +94,38 @@ def test_k1_large_bitwise(cuda, n):
                                                device=cuda))
 
 
+# K2's shapes (G, m, K, rmax): config 1's cluster and its ten sign
+# clusters, two clusters of m=2 at rank 2, and the wide block (P = 6, T = 128)
+SCHUR_SHAPES = [(1, 1, 11, 1), (10, 1, 1, 1), (2, 2, 3, 2), (1, 3, 64, 2)]
+
+
+def schur_operands(rng, k, G, m, K, rmax):
+    """Pairings laid out as compute_pairings returns them (transposed views
+    of (k, G, T, m, m, T)) and positive weights HH (k, G, T, T)."""
+    T = K * rmax
+    px, py = (rand_xf(rng, (G, T, m, m, T), k).permute(0, 1, 3, 2, 4, 5) for _ in range(2))
+    hh = rand_xf(rng, (G, T, T), k).abs()
+    return px, py, hh
+
+
+def check_schur(cuda, k, G, m, K, rmax):
+    """K2 at k on one shape, bitwise against its plain version on the
+    card: on the compute_pairings views, on contiguous copies, and with PX
+    broadcast over the clusters; one launch each."""
+    px, py, hh = (x.to(cuda) for x in schur_operands(np.random.default_rng(k + G + m), k, G,
+                                                     m, K, rmax))
+    for x, y, h in ((px, py, hh), (px.contiguous(), py.contiguous(), hh),
+                    (px[:, :1].expand(px.shape), py, hh)):
+        before = cuda_xf.schur_pairs.launches
+        got = cuda_xf.schur_pairs(x, y, h)
+        assert cuda_xf.schur_pairs.launches == before + 1
+        assert bitwise(got, cuda_xf.schur_pairs_torch(x, y, h)), (k, G, m, K, rmax)
+
+
 @pytest.mark.gpu
-def test_schur_pairs_kernel_bitwise(cuda):
-    rng = np.random.default_rng(1)
-    a4, b4 = (rand_dd(rng, (2, 9, 4, 11, 11)).to(cuda) for _ in range(2))
-    hh = rand_dd(rng, (2, 11, 11)).to(cuda)
-    got = cuda_xf.schur_pairs(a4, b4, hh)
-    assert torch.equal(got.view(torch.int64),
-                       cuda_xf.schur_pairs_torch(a4, b4, hh).view(torch.int64))
+@pytest.mark.parametrize("G,m,K,rmax", SCHUR_SHAPES)
+def test_schur_pairs_kernel_bitwise(cuda, G, m, K, rmax):
+    check_schur(cuda, 2, G, m, K, rmax)
 
 
 @pytest.mark.gpu
@@ -298,11 +324,9 @@ def test_two_prod_fma_range(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", BUILT_KS)
-def test_schur_pairs_xf_kernel_bitwise(cuda, k):
-    rng = np.random.default_rng(k)
-    a4, b4 = (rand_xf(rng, (2, 3, 4, 11, 11), k).to(cuda) for _ in range(2))
-    hh = rand_xf(rng, (2, 11, 11), k).to(cuda)
-    assert bitwise(cuda_xf.schur_pairs(a4, b4, hh), cuda_xf.schur_pairs_torch(a4, b4, hh))
+@pytest.mark.parametrize("G,m,K,rmax", SCHUR_SHAPES)
+def test_schur_pairs_xf_kernel_bitwise(cuda, k, G, m, K, rmax):
+    check_schur(cuda, k, G, m, K, rmax)
 
 
 @pytest.mark.gpu
@@ -499,19 +523,65 @@ def test_row_kernels_tree_boundaries_bitwise(cuda, tree_plains, k, n):
     assert bitwise_nan(inv_k.cpu(), inv_p) and bitwise_nan(w_k.cpu(), w_p)
 
 
+def check_wide(cuda, B, n):
+    """K9 on B blocks of n x n, the second indefinite, given B-major and as
+    the batch-minor view of a (2, n, n, B) array: one launch each, flags
+    and limbs bitwise K1's (NaNs in the same places)."""
+    a = spd_batch(np.random.default_rng(400 + n), B, n, 1e6).to(cuda)
+    a[1, 0, n // 2, n // 2] = -1.0
+    inv_1, ok_1 = cuda_dd.dd_spd_inverse(a)
+    assert ok_1.tolist() == [True, False] + [True] * (B - 2)
+    for x in (a, a.permute(1, 2, 3, 0).contiguous().permute(3, 0, 1, 2)):
+        before = cuda_dd.dd_spd_inverse_wide.launches
+        inv_k, ok_k = cuda_dd.dd_spd_inverse_wide(x)
+        assert cuda_dd.dd_spd_inverse_wide.launches == before + 1
+        assert ok_k.tolist() == ok_1.tolist(), n
+        assert bitwise_nan(inv_k, inv_1), n
+
+
 @pytest.mark.gpu
 def test_spd_inverse_wide_kernel_bitwise(cuda):
-    """40 blocks of 9x9: a thread block takes 32, so the second runs short."""
-    a = spd_batch(np.random.default_rng(400), 40, 9, 1e8).to(cuda)
-    a[5, 0, 0, 0] = -1.0  # indefinite
-    before = cuda_dd.dd_spd_inverse_wide.launches
-    inv_k, ok_k = cuda_dd.dd_spd_inverse_wide(a)
-    inv_p, ok_p = cuda_dd.dd_spd_inverse_wide_torch(a)
+    """K9 at n = 1..65 (every shape of the halving tree, one and several
+    matrices a block), 40 blocks each so that the last block of a launch
+    runs short, against K1."""
+    for n in range(1, 66):
+        check_wide(cuda, 40, n)
+
+
+@pytest.mark.gpu
+def test_spd_inverse_wide_kernel_special_values_bitwise(cuda):
+    """K9 against K1 on blocks whose W leaves the range where K9 starts
+    W^T W's entries past W's zero upper triangle (infinite, NaN or huge
+    entries, tiny and zero pivots), where every step runs, and on blocks
+    with exact zeros (zero, identity, diagonal): flags and limbs bitwise
+    K1's, NaNs in the same places."""
+    n = 9
+    base = spd_batch(np.random.default_rng(700), 1, n, 1e3)[0]
+    blocks = [torch.zeros((2, n, n), dtype=torch.float64), base.clone(), base.clone(),
+              base.clone(), base * 1e300, base * 1e-300, base * 1e-310, base.clone(), -base]
+    blocks[1][0] = torch.eye(n, dtype=torch.float64)
+    blocks[2][0] = torch.diag(torch.arange(1.0, n + 1, dtype=torch.float64))
+    blocks[3][0, 3, 1] = float("inf")
+    blocks[7][0, 0, 0] = 1e-300
+    nan = base.clone()
+    nan[0, 5, 5] = float("nan")
+    a = torch.stack(blocks + [nan]).to(cuda)
     inv_1, ok_1 = cuda_dd.dd_spd_inverse(a)
-    assert cuda_dd.dd_spd_inverse_wide.launches == before + 1
-    assert torch.equal(ok_k, ok_p) and torch.equal(ok_k, ok_1) and not bool(ok_k[5])
-    good = ok_p.nonzero()[:, 0]
-    assert bitwise(inv_k[good], inv_p[good]) and bitwise(inv_k[good], inv_1[good])
+    inv_k, ok_k = cuda_dd.dd_spd_inverse_wide(a)
+    assert ok_k.tolist() == ok_1.tolist()
+    assert bitwise_nan(inv_k, inv_1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [257, 512])
+def test_spd_inverse_wide_kernel_large_bitwise(cuda, n):
+    """K9 with L and W in global scratch, up to its cap of 512 rows, against
+    K1; one row more raises."""
+    check_wide(cuda, 2, n)
+    if n == cuda_dd.WIDE_MAX_ROWS:
+        with pytest.raises(ValueError):
+            cuda_dd.dd_spd_inverse_wide(torch.zeros((1, 2, n + 1, n + 1), dtype=torch.float64,
+                                                    device=cuda))
 
 
 @pytest.mark.gpu

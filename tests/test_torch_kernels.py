@@ -27,8 +27,11 @@ from clrs_tpu.ops.pallas_dd import dd_spd_inverse_pallas
 from clrs_tpu.ops.pallas_xf import _matmul_batched, _schur_pairs_batched
 from clrs_tpu.ops.xfloat import XF as JXF
 from clrs_tpu_torch.core import kernels as tk
-from clrs_tpu_torch.ops import cuda_dd, cuda_xf
+from clrs_tpu_torch.core.blockinfo import pair_list
+from clrs_tpu_torch.ops import cuda_dd, cuda_xf, xops
 from clrs_tpu_torch.ops.xfloat import XF as TXF
+from clrs_tpu_torch.ops.xfloat import xf_mul as txf_mul
+from clrs_tpu_torch.ops.xfloat import xf_sum as txf_sum
 
 from test_torch_cuda import matmul_operands as cuda_matmul_operands
 from test_torch_linalg import spd_dd
@@ -174,44 +177,204 @@ def test_spd_inverse_plan_layouts_and_refusals():
 
 
 # ---------------------------------------------------------------------------
-# K2: Schur pairs core
+# K2: the Schur block of a group of clusters
 # ---------------------------------------------------------------------------
 
 
-def schur_inputs(rng, P2=4, T=5):
-    a4 = rand_dd(rng, (P2, 4, T, T))
-    b4 = rand_dd(rng, (P2, 4, T, T))
-    hh = rand_dd(rng, (T, T), positive=True)
-    return a4, b4, hh
+def schur_operands(rng, k=2, m=2, T=5, G=1):
+    """Pairings PX, PY (k, G, m, T, m, T) laid out as compute_pairings
+    returns them (transposed views of (k, G, T, m, m, T)), and positive
+    weights HH (k, G, T, T)."""
+    px, py = (t(rand_xf(rng, (G, T, m, m, T), k)).permute(0, 1, 3, 2, 4, 5)
+              for _ in range(2))
+    return px, py, t(rand_xf(rng, (G, T, T), k, positive=True))
+
+
+def gathered_slices(px, py):
+    """The reference route's gather (kernels.py:_schur_block_contribution_pallas):
+    for pair of pairs q = i1 P + i2 the four a_i = PX[ar, t1, ac, t2] and
+    b_i = PY[br, t2, bc, t1], each (k, G, P^2, 4, T, T)."""
+    k, G, m, T = px.shape[0], px.shape[1], px.shape[2], px.shape[-1]
+    pairs = pair_list(m)
+    P = len(pairs)
+    ar, ac, br, bc = (np.empty((P * P, 4), np.int64) for _ in range(4))
+    for i1, (r1, s1) in enumerate(pairs):
+        for i2, (r2, s2) in enumerate(pairs):
+            q = i1 * P + i2
+            ar[q], ac[q] = (s1, r1, s1, r1), (r2, r2, s2, s2)
+            br[q], bc[q] = (s2, s2, r2, r2), (r1, s1, r1, s1)
+
+    def mm_first(x):  # (k, G, m, T, m, T) -> (k, G, m m, T, T), [r m + s, t1, t2]
+        return x.permute(0, 1, 2, 4, 3, 5).reshape(k, G, m * m, T, T)
+
+    a4 = mm_first(px)[:, :, torch.from_numpy(ar * m + ac)]
+    b4 = mm_first(py)[:, :, torch.from_numpy(br * m + bc)].transpose(-1, -2)
+    return a4, b4
+
+
+def gathered_schur_block(PX, PY, HH, m, K, rmax):
+    """The Schur block as the kernel route formed it before K2 took the
+    whole block: the gathered slices, the elementwise core on xops, the
+    rank segment-sum over (P, P, K, rmax, K, rmax) and the transpose into
+    the (P K, P K) layout; PX, PY (k, G, m, T, m, T), HH (k, G, T, T)."""
+    k, G, T = PX.k, PX.shape[0], K * rmax
+    P = m * (m + 1) // 2
+    a4, b4 = gathered_slices(PX.limbs, PY.limbs)
+    p = [xops.mul(list(a4[:, :, :, i].unbind(0)), list(b4[:, :, :, i].unbind(0)))
+         for i in range(4)]
+    s = xops.add(xops.add(p[0], p[1]), xops.add(p[2], p[3]))
+    w = torch.stack(xops.mul(s, [x[:, None] for x in HH.limbs.unbind(0)]))
+    W = TXF(w.reshape(k, G, P, P, K, rmax, K, rmax))
+    blk = txf_sum(txf_sum(W, axis=-1), axis=-2)  # (G, P, P, K, K)
+    return blk.transpose(0, 1, 3, 2, 4).reshape(G, P * K, P * K)
 
 
 def test_schur_pairs_plain_matches_pallas_interpret():
+    """K2's plain version, the whole block at once on the pairings as they
+    lie, against the Pallas kernel in interpret mode on the slices the
+    reference's route gathers, entry for entry."""
     rng = np.random.default_rng(5)
-    a4, b4, hh = schur_inputs(rng)
-    want = _schur_pairs_batched(jnp.asarray(a4), jnp.asarray(b4), jnp.asarray(hh),
-                                interpret=True)
-    got = cuda_xf.schur_pairs_torch(t(a4)[:, None], t(b4)[:, None], t(hh)[:, None])
-    assert_close_dd(np.asarray(want), got[:, 0].numpy(), REL_INTERPRET)
+    m, T, P = 2, 5, 3
+    px, py, hh = schur_operands(rng, 2, m, T)
+    a4, b4 = gathered_slices(px, py)
+    want = _schur_pairs_batched(jnp.asarray(a4[:, 0].numpy()), jnp.asarray(b4[:, 0].numpy()),
+                                jnp.asarray(hh[:, 0].numpy()), interpret=True)
+    got = cuda_xf.schur_pairs_torch(px, py, hh)[:, 0]  # (2, P, T, P, T)
+    got = got.permute(0, 1, 3, 2, 4).reshape(2, P * P, T, T)
+    assert_close_dd(np.asarray(want), got.numpy(), REL_INTERPRET)
 
 
 def test_schur_pairs_plain_dd_accuracy():
+    """Every entry of K2's plain version against the same sums in mpmath
+    at 300 bits, to double-double accuracy."""
     rng = np.random.default_rng(6)
-    a4, b4, hh = schur_inputs(rng, P2=2, T=3)
-    got = cuda_xf.schur_pairs_torch(t(a4)[:, None], t(b4)[:, None],
-                                    t(hh)[:, None])[:, 0].numpy()
+    m, T = 2, 3
+    px, py, hh = (x.numpy() for x in schur_operands(rng, 2, m, T))
+    got = cuda_xf.schur_pairs_torch(t(px), t(py), t(hh))[:, 0].numpy()
+    pairs = pair_list(m)
     old = mpmath.mp.prec
     mpmath.mp.prec = 300
     try:
-        for q in range(2):
-            for i in range(3):
-                for j in range(3):
-                    s = mpmath.fsum(mp_value(a4, (q, r, i, j)) * mp_value(b4, (q, r, i, j))
-                                    for r in range(4))
-                    w = s * mp_value(hh, (i, j))
-                    g = mp_value(got, (q, i, j))
-                    assert abs(g - w) <= mpmath.mpf(2) ** -100 * (abs(w) + 1)
+        for i1, (r1, s1) in enumerate(pairs):
+            for i2, (r2, s2) in enumerate(pairs):
+                ab = (((s1, r2), (s2, r1)), ((r1, r2), (s2, s1)), ((s1, s2), (r2, r1)),
+                      ((r1, s2), (r2, s1)))
+                for i in range(T):
+                    for j in range(T):
+                        s = mpmath.fsum(mp_value(px, (0, ra, i, ca, j))
+                                        * mp_value(py, (0, rb, j, cb, i))
+                                        for (ra, ca), (rb, cb) in ab)
+                        w = s * mp_value(hh, (0, i, j))
+                        g = mp_value(got, (i1, i, i2, j))
+                        assert abs(g - w) <= mpmath.mpf(2) ** -100 * (abs(w) + 1)
     finally:
         mpmath.mp.prec = old
+
+
+@pytest.mark.parametrize("k", [2, 3, 6])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_schur_block_plain_is_gathered_composition(k, m):
+    """The kernel route's Schur block (K2's plain version on the strided
+    pairings compute_pairings returns, then the segment-sum on its layout
+    and a reshape) is bit for bit the composition it replaces (gather, the
+    elementwise core, segment-sum, transpose), for rmax 1 and 2 and one
+    and two clusters."""
+    for rmax in (1, 2):
+        for G in (1, 2):
+            rng = np.random.default_rng(300 + 10 * k + m + 3 * rmax + G)
+            K, delta = 3, 2
+            T = K * rmax
+            Z, Y = (rand_xf(rng, (G, m * delta, m * delta), k) for _ in range(2))
+            Z, Y = ((x + np.swapaxes(x, -1, -2)) / 2 for x in (Z, Y))
+            V, H = rand_xf(rng, (G, delta, T), k), rand_xf(rng, (G, T), k)
+            PX = tk.compute_pairings(txf(Z), txf(V), m)
+            PY = tk.compute_pairings(txf(Y), txf(V), m)
+            assert PX.limbs.stride()[-3] == m * m * T and PX.limbs.stride()[-1] == 1
+            Ht = txf(H)
+            HH = TXF(txf_mul(TXF(Ht.limbs[..., :, None]), TXF(Ht.limbs[..., None, :])).limbs
+                     * 0.25)
+            want = gathered_schur_block(PX, PY, HH, m, K, rmax)
+            got = tk._schur_block_contribution_cuda(PX, PY, HH, m, K, rmax)
+            assert_bitwise(want.limbs.numpy(), got)
+
+
+def read_strided(x, limb_stride, strides, dims):
+    """The limbs a kernel loads from x's storage for an operand of the
+    given dims at limb_stride * q + sum_i index_i * strides[i]."""
+    k = x.shape[0]
+    idx = torch.zeros(dims, dtype=torch.int64)
+    for ax, (dim, st) in enumerate(zip(dims, strides)):
+        shape = [1] * len(dims)
+        shape[ax] = dim
+        idx = idx + (torch.arange(dim) * st).reshape(shape)
+    flat = torch.as_strided(x, (int(idx.max()) + (k - 1) * limb_stride + 1,), (1,),
+                            x.storage_offset())
+    return torch.stack([flat[q * limb_stride + idx] for q in range(k)])
+
+
+@pytest.mark.parametrize("k", [2, 3, 12])
+def test_schur_plan_reads_operands_in_place(k):
+    """The description K2's wrapper hands the kernel addresses, in each
+    operand's own storage, exactly the operand broadcast to the batch: the
+    transposed pairings of compute_pairings, a contiguous copy, a PX and an
+    HH broadcast over the clusters, no batch axis, and two batch axes that
+    merge; the tile's rows follow T and the staged bytes."""
+    import struct
+
+    rng = np.random.default_rng(180 + k)
+    px, py, hh = schur_operands(rng, k, 2, 5, G=3)
+    cases = ((px, py, hh), (px.contiguous(), py, hh),
+             (px[:, :1].expand(px.shape), py, hh[:, :1]),
+             (px[:, 0], py[:, 0], hh[:, 0]),
+             (px.reshape((k, 3, 1) + px.shape[2:]), py.contiguous().reshape(
+                 (k, 3, 1) + py.shape[2:]), hh.reshape(k, 3, 1, 5, 5)))
+    ty = 8 if cuda_xf._schur_shared(k, 2, 8) <= cuda_xf.SCHUR_SHARED_BUDGET else 4
+    for x, y, h in cases:
+        desc, shape, N = cuda_xf._schur_plan(x, y, h)
+        d = struct.unpack("<22q", desc)
+        batch = tuple(np.broadcast_shapes(x.shape[1:-4], y.shape[1:-4], h.shape[1:-2]))
+        G = int(np.prod(batch))
+        assert d[:6] == (k, G, 2, 5, 3, ty) and shape == (k,) + batch + (3, 5, 3, 5)
+        assert N == G * 225
+        for op, off, dims in ((x, 6, (G, 2, 5, 2, 5)), (y, 12, (G, 2, 5, 2, 5)),
+                              (h, 18, (G, 5, 5))):
+            want = op.expand((k,) + batch + op.shape[len(op.shape) - len(dims) + 1:])
+            got = read_strided(op, d[off], d[off + 1:off + len(dims) + 1], dims)
+            assert_bitwise(want.reshape(got.shape).numpy(), got)
+    one = torch.zeros((k, 1, 1, 1, 1, 1), dtype=torch.float64)
+    for T, ty in ((1, 1), (2, 2), (3, 4), (8, 8), (11, 8), (128, 8)):
+        x = one.expand(k, 1, 3, T, 3, T)
+        h = one[..., 0, 0].expand(k, 1, T, T)
+        want = ty if cuda_xf._schur_shared(k, 3, ty) <= cuda_xf.SCHUR_SHARED_BUDGET else 4
+        assert struct.unpack("<22q", cuda_xf._schur_plan(x, x, h)[0])[5] == want
+
+
+def test_schur_plan_refusals():
+    """K2's description raises on what its kernel does not take: a device
+    mix, non-float64 limbs, pairings of other shapes or limb counts, a
+    batch whose axes do not merge, an m whose staged slices do not fit one
+    row of a tile, and a limb count the library holds no kernel for."""
+    rng = np.random.default_rng(190)
+    px, py, hh = schur_operands(rng, 3, 2, 4, G=2)
+    meta = torch.empty(px.shape, dtype=torch.float64, device="meta")
+    for x, y, h in ((px, meta, hh), (px, py.float(), hh), (px, py[:2], hh),
+                    (px, py[..., :3, :, :3], hh), (px, py, hh[..., :3, :3]),
+                    (px, py[..., :1, :, :1, :], hh), (px[:, 0, 0], py, hh)):
+        with pytest.raises(ValueError):
+            cuda_xf._schur_plan(x, y, h)
+    wide = torch.zeros((3, 2, 3, 2, 4, 2, 4), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        cuda_xf._schur_plan(wide.transpose(1, 2), wide, hh)
+    one = torch.zeros((12, 1, 1, 1, 1, 1), dtype=torch.float64)
+    big = one.expand(12, 1, 36, 1, 36, 1)
+    assert cuda_xf._schur_shared(12, 36, 1) > cuda_xf.SCHUR_MAX_SHARED
+    with pytest.raises(ValueError):
+        cuda_xf._schur_plan(big, big, one[..., 0, 0])
+    ok = one.expand(12, 1, 35, 1, 35, 1)
+    cuda_xf._schur_plan(ok, ok, one[..., 0, 0])
+    with pytest.raises(NotImplementedError):
+        z = torch.zeros((13, 1, 1, 1, 1), dtype=torch.float64)
+        cuda_xf._schur_plan(z, z, z[:, 0, 0])
 
 
 # ---------------------------------------------------------------------------
@@ -264,8 +427,7 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     inv, ok = cuda_dd.dd_spd_inverse(t(a))
     inv2, ok2 = cuda_dd.dd_spd_inverse_torch(t(a))
     assert torch.equal(inv, inv2) and torch.equal(ok, ok2)
-    a4, b4, hh = schur_inputs(rng, P2=1, T=2)
-    args = (t(a4)[:, None], t(b4)[:, None], t(hh)[:, None])
+    args = schur_operands(rng, 2, 2, 2)
     assert torch.equal(cuda_xf.schur_pairs(*args), cuda_xf.schur_pairs_torch(*args))
     x, y = t(rand_dd(rng, (2, 3, 4))), t(rand_dd(rng, (2, 4, 5)))
     assert torch.equal(cuda_xf.dd_matmul(x, y), cuda_xf.dd_matmul_seq_torch(x, y))
@@ -424,7 +586,8 @@ def test_matmul_and_schur_k_plain_match_xops_replay(k):
     (k=2, xfloat's dd sequences written out) the same over the contraction
     as it is, with no padding: so one kernel source serves both, its step
     count an argument; K2 forms ((p1 + p2) + (p3 + p4)) * HH
-    (pallas_xf.py:605-614)."""
+    (pallas_xf.py:605-614) on the slices the reference gathers, every pair
+    of pairs in one call on the pairings as they lie."""
     from clrs_tpu.ops.pallas_xf import _XOps
     from clrs_tpu_torch.ops import xops
 
@@ -443,11 +606,12 @@ def test_matmul_and_schur_k_plain_match_xops_replay(k):
     plain = cuda_xf.dd_matmul_seq_torch if k == 2 else cuda_xf.matmul_xf_torch
     assert_limbs_bitwise(acc, list(plain(t(a), t(b))))
     assert_limbs_bitwise(acc, mine)
-    a4, b4 = rand_xf(rng, (2, 3, 4, 5, 5), k), rand_xf(rng, (2, 3, 4, 5, 5), k)
-    hh = rand_xf(rng, (2, 5, 5), k, positive=True)
+    px, py, hh = schur_operands(rng, k, 2, 5, G=2)
+    a4, b4 = (x.numpy() for x in gathered_slices(px, py))  # (k, 2, 9, 4, 5, 5)
     p = [xo.mul(jlist(a4[:, :, :, i]), jlist(b4[:, :, :, i])) for i in range(4)]
-    w = xo.mul(xo.add(xo.add(p[0], p[1]), xo.add(p[2], p[3])), jlist(hh[:, :, None]))
-    assert_limbs_bitwise(w, list(cuda_xf.schur_pairs_torch(t(a4), t(b4), t(hh))))
+    w = xo.mul(xo.add(xo.add(p[0], p[1]), xo.add(p[2], p[3])), jlist(hh.numpy()[:, :, None]))
+    got = cuda_xf.schur_pairs_torch(px, py, hh)  # (k, 2, P, T, P, T)
+    assert_limbs_bitwise(w, list(got.permute(0, 1, 2, 4, 3, 5).reshape(k, 2, 9, 5, 5)))
 
 
 def assert_close_xf(want, got, tol):
@@ -1030,8 +1194,48 @@ def struct_pack(*v):
 
 
 # ---------------------------------------------------------------------------
-# K9: dd SPD inverse, batch-minor layout
+# K9: dd SPD inverse for many small matrices
 # ---------------------------------------------------------------------------
+
+
+def test_wide_plan_reads_input_in_place():
+    """K9's description reads the input where it lies (B-major, the
+    batch-minor view of a (2, n, n, B) array, transposed blocks) and lays
+    out the launch: G lanes per dot product, the widest power of two that
+    fills a team of up to 256 threads (at most 32 and np2, at least np2 /
+    16), narrower while the batch's teams overfill the card; several
+    matrices a block while they fit in 256 threads and two blocks an SM;
+    L and W in shared memory up to n = 96 and in scratch above."""
+    import struct
+
+    x = torch.zeros((5, 2, 7, 7), dtype=torch.float64)
+    minor = torch.zeros((2, 7, 7, 5), dtype=torch.float64).permute(3, 0, 1, 2)
+    for v, strides in ((x, (98, 49, 7, 1)), (minor, (1, 245, 35, 5)),
+                       (x.transpose(-1, -2), (98, 49, 1, 7))):
+        desc, B, n, scratch = cuda_dd._wide_plan(v)
+        assert (B, n, scratch) == (5, 7, 0)
+        assert struct.unpack("<11q", desc) == (5, 7) + strides + (64, 4, 1, 9, 8)
+
+    def plan(B, n):  # (team, teams, in shared memory, ldw, G), scratch
+        one = torch.zeros((1, 2, 1, 1), dtype=torch.float64).expand(B, 2, n, n)
+        desc, _, _, scratch = cuda_dd._wide_plan(one)
+        return struct.unpack("<11q", desc)[6:], scratch
+
+    assert plan(256, 64) == ((256, 1, 1, 65, 4), 0)  # 102 KB a block: two an SM
+    assert plan(10, 1) == ((32, 8, 1, 9, 1), 0)
+    assert plan(1, 11) == ((192, 1, 1, 17, 16), 0)
+    assert plan(4000, 11) == ((64, 4, 1, 17, 4), 0)
+    assert plan(3, 33) == ((160, 1, 1, 41, 4), 0)
+    assert plan(2, 96)[0][2] == 1 and plan(2, 97)[0][2] == 0
+    lw = 512 * 513 // 2 + 512 * 513
+    assert plan(2, 512) == ((256, 1, 0, 513, 32), 2 * 2 * lw)
+    for bad in (torch.zeros((1, 2, 1, 1), dtype=torch.float64).expand(1, 2, 513, 513),
+                torch.zeros((2, 3, 4, 4), dtype=torch.float64),
+                torch.zeros((2, 2, 4, 4), dtype=torch.float32),
+                torch.zeros((2, 2, 4, 5), dtype=torch.float64),
+                torch.zeros((2, 4, 4), dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            cuda_dd._wide_plan(bad)
 
 
 def test_spd_inverse_wide_plain_matches_pallas_interpret():
