@@ -4,9 +4,10 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. requires a CUDA device; prints the card's name and power limit, and
-     starts the CPU reference solves of phases 4, 5 and 7 and the plain
-     versions of phase 3's K5 and K7 tree rows in worker processes (they
-     need no card);
+     starts the CPU reference solves of phases 4, 5 and 7, the plain
+     versions of phase 3's K5 and K7 tree rows and of phase 12's K5 and
+     K7 rows, and phase 9's CPU run in worker processes (they need no
+     card);
   2. builds the hand-written kernels (clrs_tpu_torch/csrc, one nvcc per
      source, all at once) and prints the build seconds and ptxas's
      registers and spills of the k-limb kernels at k=3, 10 and 12, of the
@@ -69,8 +70,35 @@ Phases (any failure raises, and the script exits non-zero):
      decomposition phase of iteration 3 of config 1 at k=2 for K1's
      device time per launch (K1 and K5 told apart by the template
      instance in the kernel's name);
-  9. prints the kernels' JSON line, then the result line
+  9. climbs sp16 (the two-species sphere packing at 2d=16, the reference's
+     own example, built at 53*10 + 150 bits) through solve_with_escalation's
+     default ladder (2, 3, 4, 6, 10) on the all-kernels route, omega 100,
+     350 iterations, stall patience 40, under the full contract: it must
+     end `optimal` at 0.8150097064427971 to 1e-10 with the last row's gap
+     under 1e-15 and its errors under 1e-30; each rung resets the counters
+     and prints its status, iterations, wall, steady it/s, launches by
+     kernel and ms/iter by phase, must launch its kernels (K1, K2, K3, K7,
+     K8 at k=2; K2, K4, K5, K7, K8 above) and no other, and must start
+     from the previous rung's result re-rounded, bitwise; the k=2 rung's
+     first 10 iterations follow a CPU worker on the same route to 1e-10
+     relative until an error reaches 1e-20;
+ 10. solves sp30 (2d=30, BASELINE config 2) cold at k=6 on the same route
+     and contract through the ladder (6, 10), per rung as in phase 9: it
+     must end `optimal` at 0.813598677806444 to 1e-10;
+ 11. solves BASELINE config 4, polymin_simplex on the 2-simplex quadratic
+     x^2 + y^2 - xy - x - y, at k=2, counters reset: K1, K2, K3 must
+     launch and the bound is -0.75 to 1e-6;
+ 12. runs each kernel of phases 9 and 10 against its plain version at
+     those solves' shapes, at every rung that runs it (sp16 at k = 2, 3,
+     4, 6, 10, sp30 at k = 6, 10): K2 on each cluster group (m=1 and m=2,
+     T = 2d + 1), K3 (k=2) and K4 on the pairing products and S_j^-1 B and
+     B^T S_j^-1 B, K1 (k=2) and K5 on S_j (up to 51 and 93 rows) and Q (52
+     and 94), and K7's iteration launch over both sides' blocks (up to
+     18/16 and 32/30 rows); K5's and K7's plain versions run in the CPU
+     workers meanwhile;
+ 13. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} as the last line.
+Phase 8's profiles run after phases 9-12.
 The full record also goes to chiprun_out/chip_smoke.json.
 """
 
@@ -83,7 +111,7 @@ import sys
 import time
 from multiprocessing import get_context
 
-import mpmath  # noqa: F401  (the port's front-end needs it; fail loudly here)
+import mpmath
 import numpy as np
 import torch
 
@@ -349,6 +377,41 @@ ELEMWISE_OPERANDS = (("(10,1,1)x(10,11,11)", ((10, 1, 1), 0), ((10, 11, 11), 0))
                      ("(6,1)x(1,6)", ((6, 1), 0), ((1, 6), 0)),
                      ("2-limb (11,11)", ((11, 11), 2), ((11, 11), 0)),
                      ("(k-1)-limb (6,6)", ((6, 6), -1), ((6, 6), 0)))
+# the sphere-packing solves' shapes (phases 9 and 10), at every rung that
+# runs them: sp16 climbs (2, 3, 4, 6, 10), sp30 runs (6, 10).  Each has four
+# cluster groups (G clusters of m x m blocks, K = 2d + 1 samples, rank 1):
+# three of m=1 with blocks of d + 1 and d rows, two 1x1, one of m=2 with a
+# 2x2 block, and the main one of m=2 with blocks of 2d + 2 and 2d rows
+SP_RUNGS = {"sp16": (2, 3, 4, 6, 10), "sp30": (6, 10)}
+# K2 (G, m, K, rmax); the 1x1 and 2x2 groups are the same in both
+SP_SCHUR_SHAPES = {
+    "sp16": (("sp16 G=3 m=1 K=17 rmax=1", (3, 1, 17, 1)), ("sp16 G=1 m=2 K=17 rmax=1", (1, 2, 17, 1)),
+             ("G=2 m=1 K=1 rmax=1", (2, 1, 1, 1)), ("G=1 m=2 K=1 rmax=1", (1, 2, 1, 1))),
+    "sp30": (("sp30 G=3 m=1 K=31 rmax=1", (3, 1, 31, 1)), ("sp30 G=1 m=2 K=31 rmax=1", (1, 2, 31, 1)))}
+# K3 (k=2) and K4 (B, n, K, m): the pairing products of the widest block of
+# each group (Z V and V^T (Z V), kernels.py's compute_pairings), then
+# S_j^-1 B and B^T (S_j^-1 B) of the main cluster (n_y = dim_S + 1)
+SP_MATMUL_SHAPES = {
+    "sp16": (("sp16 V^T ZV 3x(17,9)x(9,17)", (3, 17, 9, 17)), ("sp16 ZV m=2 (36,9)x(9,17)", (1, 36, 9, 17)),
+             ("sp16 V^T ZV m=2 (17,9)x(9,68)", (1, 17, 9, 68)),
+             ("sp16 S_j^-1 B (51,51)x(51,52)", (1, 51, 51, 52)),
+             ("sp16 B^T S_j^-1 B (52,51)x(51,52)", (1, 52, 51, 52))),
+    "sp30": (("sp30 V^T ZV 3x(31,16)x(16,31)", (3, 31, 16, 31)),
+             ("sp30 ZV m=2 (64,16)x(16,31)", (1, 64, 16, 31)),
+             ("sp30 V^T ZV m=2 (31,16)x(16,124)", (1, 31, 16, 124)),
+             ("sp30 S_j^-1 B (93,93)x(93,94)", (1, 93, 93, 94)),
+             ("sp30 B^T S_j^-1 B (94,93)x(93,94)", (1, 94, 93, 94)))}
+# K1 (k=2) and K5 (B, n, cond): S_j of the m=1 group and of the main
+# cluster, and Q
+SP_INVERSE_SHAPES = {
+    "sp16": (("sp16 S_j 3x17x17", (3, 17, 1e8)), ("sp16 S_j 1x51x51", (1, 51, 1e8)),
+             ("sp16 Q 1x52x52", (1, 52, 1e6))),
+    "sp30": (("sp30 S_j 3x31x31", (3, 31, 1e8)), ("sp30 S_j 1x93x93", (1, 93, 1e8)),
+             ("sp30 Q 1x94x94", (1, 94, 1e6)))}
+# K7's iteration launch: (n, count) per block size of one side, X's and
+# Y's in one launch (the 1x1 blocks take the closed form)
+SP_STEPLEN_BLOCKS = {"sp16": ((9, 3), (8, 3), (2, 1), (18, 1), (16, 1)),
+                     "sp30": ((16, 3), (15, 3), (2, 1), (32, 1), (30, 1))}
 # K5 and K7 where the halving tree changes shape (csrc/chol_xf.cuh)
 TREE_SIZES = (1, 2, 31, 32, 33, 64, 65)
 TREE_WORKERS = 4  # CPU processes for the tree rows' plain versions
@@ -392,16 +455,72 @@ def tree_plain(k, n):
                 k5_s=t1 - t0, k7_s=time.time() - t1)
 
 
-def check_kernels(dev, record, tree_futures):
-    """Phase 3: every kernel bitwise against its plain version."""
-    from clrs_tpu_torch.ops import cuda_dd, cuda_xf
+def ladder_tasks():
+    """The sphere-packing rows whose plain versions run in CPU workers
+    (ladder_plain), longest first: K5 on each SP_INVERSE_SHAPES entry and
+    K7 on each (side, block size) group of SP_STEPLEN_BLOCKS, at every
+    rung of the solve (K5 from k=3: K1 takes k=2 on the card)."""
+    tasks = []
+    for sp, ks in SP_RUNGS.items():
+        for k in ks:
+            if k > 2:
+                tasks += [("spd_inverse_xf", sp, k, i) for i in range(len(SP_INVERSE_SHAPES[sp]))]
+            tasks += [("steplen_xf", sp, k, (side, i)) for side in range(2)
+                      for i in range(len(SP_STEPLEN_BLOCKS[sp]))]
 
-    rng = np.random.default_rng(0)
-    rows = []
+    def size(task):
+        name, sp, k, i = task
+        n = (SP_INVERSE_SHAPES[sp][i][1][1] if name == "spd_inverse_xf"
+             else SP_STEPLEN_BLOCKS[sp][i[1]][0])
+        return k * k * n
+
+    return sorted(tasks, key=size, reverse=True)
+
+
+def ladder_inputs(task):
+    """A ladder task's inputs, on the CPU, the same in every process: for
+    K5 the blocks of (B, n) at cond, for K7 M (SPD) and a symmetric dM of
+    one side's blocks of one size."""
+    name, sp, k, i = task
+    if name == "spd_inverse_xf":
+        B, n, cond = SP_INVERSE_SHAPES[sp][i][1]
+        return [spd_batch(np.random.default_rng([3000, k, n]), B, n, k, cond, "cpu")]
+    side, j = i
+    n, count = SP_STEPLEN_BLOCKS[sp][j]
+    rng = np.random.default_rng([3001, k, n, side])
+    m = spd_batch(rng, count, n, k, 1e6, "cpu")
+    d = rand_xf(rng, (count, n, n), k, "cpu").transpose(0, 1)
+    return [m, ((d + d.transpose(-1, -2)) / 2).contiguous()]
+
+
+def ladder_plain(task):
+    """A ladder task's plain version in a CPU worker (at k=10 K5 on 93 rows
+    and K7 on sp30's blocks take minutes of small launches on the card):
+    outputs and seconds."""
+    torch.set_num_threads(1)
+    from clrs_tpu_torch.ops import cuda_xf
+
+    inputs = ladder_inputs(task)
+    t0 = time.time()
+    if task[0] == "steplen_xf":
+        m, d = inputs
+        out = cuda_xf.steplen_sandwich_xf_torch(m, d.transpose(-1, -2))
+    else:
+        out = cuda_xf.spd_inverse_xf_torch(inputs[0])
+    return dict(out=tuple(x.numpy() for x in out), s=time.time() - t0)
+
+
+def make_case(rows):
+    """The check of one kernel row: the kernel's output bitwise against its
+    plain version's on the same inputs, then the kernel's time (median and
+    back to back), the plain version's and the bound; the row goes to rows."""
 
     def case(name, k, label, kernel, plain, args, work, reps, plain_reps, main,
              plain_ms=None, view=None):
-        """view: applied to both outputs before they are compared (not timed)."""
+        """view: applied to both outputs before they are compared (not timed).
+        plain_reps 0: the plain version's time is that of the call compared
+        (from k=6, where one call of K5's or K7's takes seconds of small
+        launches), not a median of more."""
         out_k = kernel(*args)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -439,6 +558,20 @@ def check_kernels(dev, record, tree_futures):
             f"({bound_by})")
         return row
 
+    return case
+
+
+def flat(groups):  # W and flags of every K7 group, as one float64 vector
+    return torch.cat([w.reshape(-1) for w, _ in groups] + [ok.double() for _, ok in groups])
+
+
+def check_kernels(dev, record, rows, tree_futures):
+    """Phase 3: every kernel bitwise against its plain version."""
+    from clrs_tpu_torch.ops import cuda_dd, cuda_xf
+
+    rng = np.random.default_rng(0)
+    case = make_case(rows)
+
     # K1 (the k=2 instance of K5's kernel) at config-1 shapes, then wide:
     # 256 blocks of 64x64 at cond ~1e10, one of them indefinite, and one
     # block of 257 and of 1024 rows (the threads finish more than a row each)
@@ -465,7 +598,7 @@ def check_kernels(dev, record, tree_futures):
             case("schur_pairs_dd" if k == 2 else "schur_pairs_xf", k, label,
                  cuda_xf.schur_pairs, cuda_xf.schur_pairs_torch,
                  schur_operands(rng, k, G, m, K, rmax, dev), schur_work(k, G, m, K * rmax),
-                 50 if main else 10, (3 if k < 6 else 1) if main else 1, main)
+                 50 if main else 10, (3 if main else 1) if k < 6 else 0, main)
 
     schur_rows(2)
 
@@ -485,11 +618,11 @@ def check_kernels(dev, record, tree_futures):
         for label, (a, b), (B, n, K, m, Ba, Bb) in in_place_operands(rng, k, dev):
             steps = K if k == 2 else cuda_xf.padded_contraction(K)
             case(name, k, label, kernel, plain, (a, b),
-                 matmul_work(k, B, n, K, m, steps, Ba, Bb), 50, 3 if k < 6 else 1, True)
+                 matmul_work(k, B, n, K, m, steps, Ba, Bb), 50, 3 if k < 6 else 0, True)
 
     # K2, K4 and K5 at the ladder's k, at every config-1 shape
     for k in LADDER:
-        plain_reps = 3 if k < 6 else 1
+        plain_reps = 3 if k < 6 else 0
         schur_rows(k)
         for label, (B, n, K, m) in MATMUL_SHAPES:
             a, b = rand_xf(rng, (B, n, K), k, dev), rand_xf(rng, (B, K, m), k, dev)
@@ -499,7 +632,8 @@ def check_kernels(dev, record, tree_futures):
         for label, (B, n, cond) in INVERSE_SHAPES:
             a = spd_batch(rng, B, n, k, cond, dev)
             case("spd_inverse_xf", k, label, cuda_xf.spd_inverse_xf,
-                 cuda_xf.spd_inverse_xf_torch, (a,), spd_inverse_work(k, B, n), 20, 1, True)
+                 cuda_xf.spd_inverse_xf_torch, (a,), spd_inverse_work(k, B, n), 20,
+                 1 if k < 6 else 0, True)
 
     # wide: K4 above K6's size gate (k*n*m > 2e6 tiles on the TPU), and K5
     # on 64 blocks of 32x32 with one indefinite
@@ -520,9 +654,6 @@ def check_kernels(dev, record, tree_futures):
         d = rand_xf(rng, (B, n, n), k, dev).transpose(0, 1)
         return m, (d + d.transpose(-1, -2)) / 2
 
-    def flat(groups):  # W and flags of every group, as one float64 vector
-        return torch.cat([w.reshape(-1) for w, _ in groups] + [ok.double() for _, ok in groups])
-
     for k in STEPLEN_LADDER:
         # the iteration's one launch: X's and Y's 6x6 and 5x5 blocks, each
         # a (k, n, n) view read in place, dM a transposed one
@@ -535,7 +666,8 @@ def check_kernels(dev, record, tree_futures):
                    cuda_xf.steplen_sandwich_xf_groups,
                    lambda g: [cuda_xf.steplen_sandwich_xf_torch(torch.stack(ms), torch.stack(ds))
                               for ms, ds in g],
-                   (groups,), tuple(map(sum, zip(*work))), 20, 1, True, view=flat)
+                   (groups,), tuple(map(sum, zip(*work))), 20, 1 if k < 6 else 0, True,
+                   view=flat)
         per_size = flat([cuda_xf.steplen_sandwich_xf(torch.stack(ms), torch.stack(ds))
                          for ms, ds in groups])
         assert bits_equal(per_size, flat(cuda_xf.steplen_sandwich_xf_groups(groups))), \
@@ -544,7 +676,7 @@ def check_kernels(dev, record, tree_futures):
         for label, (B, n) in (("1x6x6", (1, 6)), ("1x5x5", (1, 5))):
             case("steplen_xf", k, label, cuda_xf.steplen_sandwich_xf,
                  cuda_xf.steplen_sandwich_xf_torch, sandwich_inputs(B, n, k, 1e6),
-                 steplen_work(k, B, n), 20, 1, True)
+                 steplen_work(k, B, n), 20, 1 if k < 6 else 0, True)
     m, d = sandwich_inputs(64, 32, 3, 1e10)
     m[5, 0, 4, 4] = -1e3
     row = case("steplen_xf", 3, "wide 64x32x32 (1 indefinite)", cuda_xf.steplen_sandwich_xf,
@@ -585,7 +717,7 @@ def check_kernels(dev, record, tree_futures):
                            lambda x, y, op=op: cuda_xf.elemwise_xf(op, x, y),
                            lambda x, y, op=op: cuda_xf.elemwise_xf_torch(op, x, y),
                            (a2, b2), elemwise_work(k, a2.shape[1], op), 50 if main else 10,
-                           3 if main and k < 6 else 1, main)
+                           (3 if main else 1) if k < 6 else 0, main)
                 if k >= 5:
                     got = cuda_xf.elemwise_xf(op, a2, b2).reshape(a.shape)
                     assert bits_equal(got, xf_op(XF(a), XF(b)).limbs), \
@@ -601,7 +733,7 @@ def check_kernels(dev, record, tree_futures):
                 row = case("elemwise_xf", k, f"{op} {label}",
                            lambda x, y, op=op: cuda_xf.elemwise_xf(op, x, y),
                            lambda x, y, op=op: cuda_xf.elemwise_xf_torch(op, x, y),
-                           (a, b), elemwise_work(k, n_out, op), 50, 3 if k < 6 else 1, True)
+                           (a, b), elemwise_work(k, n_out, op), 50, 3 if k < 6 else 0, True)
                 if k >= 5 and ka == kb:
                     got = cuda_xf.elemwise_xf(op, a, b)
                     assert bits_equal(got, xf_op(XF(a), XF(b)).limbs), \
@@ -660,6 +792,71 @@ def check_kernels(dev, record, tree_futures):
         plain = wide_row(f"tree 2x{n}x{n} (1 indefinite)", a, 1)
         wide_row(f"tree 2x{n}x{n} batch-minor", batch_minor(a), 1, plain)
     record["kernel_checks"] = rows
+    return rows
+
+
+def check_ladder_kernels(dev, rows, futures):
+    """Phase 12: every kernel of phases 9 and 10 bitwise against its plain
+    version at those solves' shapes, at every rung that runs it: K2 on
+    each cluster group, K3 (k=2) and K4 on the pairing and Schur products,
+    K1 (k=2) and K5 on S_j and Q, and K7's iteration launch over both
+    sides' blocks.  K5's and K7's plain versions ran in CPU workers on the
+    same inputs (ladder_plain), and their times are those."""
+    from clrs_tpu_torch.ops import cuda_dd, cuda_xf
+
+    rng = np.random.default_rng(2)
+    case = make_case(rows)
+    for sp, ks in SP_RUNGS.items():
+        for k in ks:
+            reps = 1 if k < 6 else 0
+            for label, (G, m, K, rmax) in SP_SCHUR_SHAPES[sp] + (SP_SCHUR_SHAPES["sp16"][2:]
+                                                                 if sp == "sp30" else ()):
+                case("schur_pairs_dd" if k == 2 else "schur_pairs_xf", k, label,
+                     cuda_xf.schur_pairs, cuda_xf.schur_pairs_torch,
+                     schur_operands(rng, k, G, m, K, rmax, dev), schur_work(k, G, m, K * rmax),
+                     20, reps, False)
+            for label, (B, n, K, m) in SP_MATMUL_SHAPES[sp]:
+                a, b = rand_xf(rng, (B, n, K), k, dev), rand_xf(rng, (B, K, m), k, dev)
+                if k == 2:
+                    case("matmul_dd", 2, label, cuda_xf.dd_matmul, cuda_xf.dd_matmul_seq_torch,
+                         (a, b), matmul_work(2, B, n, K, m, K), 20, reps, False)
+                else:
+                    case("matmul_xf (K4, K6)", k, label, cuda_xf.matmul_xf,
+                         cuda_xf.matmul_xf_torch, (a, b),
+                         matmul_work(k, B, n, K, m, cuda_xf.padded_contraction(K)), 20, reps,
+                         False)
+            if k == 2:
+                for label, (B, n, cond) in SP_INVERSE_SHAPES[sp]:
+                    a = spd_batch(rng, B, n, 2, cond, dev)
+                    case("spd_inverse_dd", 2, label, cuda_dd.dd_spd_inverse,
+                         cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, B, n), 20, 1,
+                         False)
+            else:
+                for i, (label, (B, n, _)) in enumerate(SP_INVERSE_SHAPES[sp]):
+                    task = ("spd_inverse_xf", sp, k, i)
+                    (a,) = (x.to(dev) for x in ladder_inputs(task))
+                    plain = futures[task].get()
+                    want = tuple(torch.from_numpy(x).to(dev) for x in plain["out"])
+                    row = case("spd_inverse_xf", k, label, cuda_xf.spd_inverse_xf,
+                               lambda *_, want=want: want, (a,), spd_inverse_work(k, B, n), 5, 0,
+                               False, plain_ms=1e3 * plain["s"])
+                    row["plain_device"] = "cpu"
+            groups, want, work, secs = [], [], [], 0.0
+            for side in range(2):
+                for i, (n, count) in enumerate(SP_STEPLEN_BLOCKS[sp]):
+                    task = ("steplen_xf", sp, k, (side, i))
+                    m, d = (x.to(dev) for x in ladder_inputs(task))
+                    groups.append((list(m.unbind(0)), [x.transpose(-1, -2) for x in d.unbind(0)]))
+                    plain = futures[task].get()
+                    want.append(tuple(torch.from_numpy(x).to(dev) for x in plain["out"]))
+                    work.append(steplen_work(k, count, n))
+                    secs += plain["s"]
+            sizes = ", ".join(f"{c}x{n}x{n}" for n, c in SP_STEPLEN_BLOCKS[sp])
+            row = case("steplen_xf", k, f"{sp} iteration X, Y x ({sizes})",
+                       cuda_xf.steplen_sandwich_xf_groups, lambda *_, want=want: want,
+                       (groups,), tuple(map(sum, zip(*work))), 5, 0, False,
+                       plain_ms=1e3 * secs, view=flat)
+            row["plain_device"] = "cpu"
     return rows
 
 
@@ -1071,6 +1268,218 @@ def solve_dim24(dev, record):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-11: the precision ladder, sp30 and config 4
+# ---------------------------------------------------------------------------
+
+# the reference's own example (examples/SpherePacking.jl:116-129): two
+# species, radii 1 and sqrt(2) - 1, n = 3, built at the precision of the
+# ladder's top rung (scripts/bench_escalation.py:47-48); sp16 is 2d = 16,
+# sp30 2d = 30 (BASELINE config 2); known answers from BASELINE.md round 3
+SP_PREC = 53 * 10 + 150
+SP16_BOUND, SP30_BOUND = 0.8150097064427971, 0.813598677806444
+LADDER_SOLVE = dict(omega_p=100.0, omega_d=100.0, maxiterations=350, stall_patience=40,
+                    duality_gap_threshold=1e-15, primal_error_threshold=1e-30,
+                    dual_error_threshold=1e-30)
+LADDER_PARITY_ITERATIONS = 10  # the k=2 rung's first iterations held against the CPU
+SP30_LADDER = (6, 10)  # cold at k=6; a stall restarts at k=10
+# the kernels each rung must launch on the all-kernels route; the others
+# must not (K1 and K3 are the k=2 instances, K9 has no solver caller)
+RUNG_KERNELS = {2: ("spd_inverse_dd", "schur_pairs", "matmul_dd", "steplen_xf", "elemwise_xf"),
+                3: ("schur_pairs", "matmul_xf", "spd_inverse_xf", "steplen_xf", "elemwise_xf")}
+
+
+def sphere_problem(d):
+    """(constraints, b, blockinfo) of the two-species packing at 2d, built
+    at SP_PREC bits; mpmath's precision is left there, for the packing of
+    every rung (the caller restores it)."""
+    from clrs_tpu_torch import nsphere_packing_2point
+
+    mpmath.mp.prec = SP_PREC
+    r = [mpmath.mpf(1), mpmath.sqrt(mpmath.mpf(2)) - 1]
+    return nsphere_packing_2point(3, d, r, 2, prec=SP_PREC, build_only=True)
+
+
+def cpu_sphere(d, k, iterations):
+    """The first iterations of the packing solve at k on the CPU, on the
+    all-kernels route's plain versions; run in a worker process."""
+    from clrs_tpu_torch import solverank1sdp
+
+    torch.set_num_threads(2)
+    cons, b, info = sphere_problem(d)
+    t0 = time.time()
+    res = solverank1sdp(cons, b, info, device="cpu", precision_k=k, verbose=False,
+                        use_cuda_matmul=True, **ALL_KERNELS_ROUTE,
+                        **dict(LADDER_SOLVE, maxiterations=iterations))
+    return dict(history=res.history, wall_s=time.time() - t0)
+
+
+def reround_leaves(res, k):
+    """The result's iterate with k limbs, padded with zeros or cut, as a
+    flat list of tensors (written here apart from core/escalate.py)."""
+    out = []
+    for x in [res.x, res.y] + [b for row in res.X for b in row] + [b for row in res.Y for b in row]:
+        limbs = x.limbs
+        pad = max(k - limbs.shape[0], 0)
+        out.append(torch.cat([limbs, limbs.new_zeros((pad,) + limbs.shape[1:])])[:k])
+    return out
+
+
+def climb(dev, tag, cons, b, info, **ladder):
+    """solve_with_escalation on the card on the all-kernels route, with
+    every launch counter reset before each rung and read after it, and each
+    rung's warm start held bitwise against the previous rung's result
+    re-rounded.  Returns (result, rungs)."""
+    from clrs_tpu_torch.core import escalate
+
+    rungs = []
+    solve_fn = escalate.solverank1sdp
+
+    def rung(*args, precision_k, initial_solutions, **kwargs):
+        warm_equal = None
+        if rungs:
+            x, y, X, Y = initial_solutions
+            got = [x.limbs, y.limbs] + [t.limbs for row in X + Y for t in row]
+            want = reround_leaves(rungs[-1]["res"], precision_k)
+            warm_equal = len(got) == len(want) and all(map(bits_equal, got, want))
+            assert warm_equal, f"{tag} k={precision_k}: the warm start is not the last result"
+        reset_counters()
+        t0 = time.time()
+        res = solve_fn(*args, precision_k=precision_k, initial_solutions=initial_solutions,
+                       **kwargs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counters()
+        it_s = (res.iterations - 2) / max(sum(res.timings.values()), 1e-12)
+        rungs.append(dict(k=precision_k, res=res, wall_s=wall, launches=launches,
+                          steady_it_per_s=it_s, warm_start_equal=warm_equal))
+        log(f"{tag} rung k={precision_k}: status {res.status} iterations {res.iterations} wall "
+            f"{wall:.3f} s steady {it_s:.4f} it/s; warm start "
+            f"{'cold' if warm_equal is None else 'bitwise the last result re-rounded'}")
+        log(f"{tag} rung k={precision_k}: launches " + ", ".join(
+            f"{n}={v} ({v / max(res.iterations, 1):.2f}/iter)" for n, v in launches.items()))
+        log(f"{tag} rung k={precision_k}: ms/iter by phase: " + ", ".join(
+            f"{p}={v:.2f}" for p, v in per_phase_ms(res).items()))
+        expect = RUNG_KERNELS[min(precision_k, 3)]
+        for name, n in launches.items():
+            assert (n > 0) == (name in expect), \
+                f"{tag} rung k={precision_k}: {name} launched {n} times"
+        return res
+
+    escalate.solverank1sdp = rung
+    try:
+        res = escalate.solve_with_escalation(cons, b, info, device=dev, verbose=False,
+                                             **ALL_KERNELS_ROUTE, **LADDER_SOLVE, **ladder)
+    finally:
+        escalate.solverank1sdp = solve_fn
+    return res, rungs
+
+
+def check_contract(tag, res, known):
+    """`optimal` at the known bound to 1e-10, with the last row's gap under
+    1e-15 and its errors under 1e-30."""
+    row = res.history[-1]
+    bound_ = -res.dual_objective
+    log(f"{tag}: status {res.status} bound {bound_!r} (known {known!r}, off by "
+        f"{abs(bound_ - known):.3e}); last row gap {row['gap']:.3e} P/p/d errors "
+        f"{row['P_err']:.3e}/{row['p_err']:.3e}/{row['d_err']:.3e}")
+    assert res.status == "optimal", f"{tag}: status {res.status}"
+    assert abs(bound_ - known) < 1e-10, f"{tag}: bound {bound_!r}"
+    assert row["gap"] < 1e-15 and max(row["P_err"], row["p_err"], row["d_err"]) < 1e-30, row
+    return bound_
+
+
+def rung_record(rungs):
+    return [dict({key: v for key, v in r.items() if key != "res"}, status=r["res"].status,
+                 iterations=r["res"].iterations, phase_ms_per_iter=per_phase_ms(r["res"]),
+                 history=r["res"].history) for r in rungs]
+
+
+def solve_sp16_ladder(dev, record, cpu_future):
+    """Phase 9: sp16 through solve_with_escalation's default ladder (2, 3,
+    4, 6, 10) on the all-kernels route under the full contract; the k=2
+    rung's first iterations against the CPU on the same route."""
+    from clrs_tpu_torch.core.escalate import DEFAULT_LADDER
+
+    old = mpmath.mp.prec
+    try:
+        t0 = time.time()
+        cons, b, info = sphere_problem(8)
+        log(f"sp16: front-end {time.time() - t0:.3f} s; m {info.m}, blocks "
+            f"{info.Y_blocksizes}, dim_S {info.dim_S}")
+        t0 = time.time()
+        res, rungs = climb(dev, "sp16", cons, b, info)
+        wall = time.time() - t0
+    finally:
+        mpmath.mp.prec = old
+    log(f"sp16 ladder: {[(r['k'], r['res'].status, r['res'].iterations) for r in rungs]}, "
+        f"wall {wall:.3f} s")
+    bound_ = check_contract("sp16 ladder", res, SP16_BOUND)
+    assert [r["k"] for r in rungs] == list(DEFAULT_LADDER[:len(rungs)])
+
+    cpu = cpu_future.get()
+    first = rungs[0]["res"].history
+    rel = [max(abs(rg[key] - rc[key]) / max(abs(rc[key]), 1e-300)
+               for key in ("p_obj", "d_obj", "gap")) for rg, rc in zip(first, cpu["history"])]
+    held = next((i for i, (rg, rc) in enumerate(zip(first, cpu["history"]))
+                 if min(rg["p_err"], rg["d_err"], rc["p_err"], rc["d_err"]) < 1e-20), len(rel))
+    worst = max(rel[:held], default=0.0)
+    log(f"sp16 k=2: relative history difference gpu vs cpu {worst!r} over the first {held} "
+        f"iterations (cpu {cpu['wall_s']:.3f} s for {len(cpu['history'])})")
+    assert held >= 1 and worst <= 1e-10, f"sp16 k=2: gpu and cpu differ by {worst!r}"
+    record["sp16_ladder"] = dict(bound=bound_, status=res.status, wall_s=wall,
+                                 rungs=rung_record(rungs), k2_cpu_rel_diff=rel,
+                                 k2_cpu_held=held, k2_cpu_wall_s=cpu["wall_s"])
+    return rungs
+
+
+def solve_sp30(dev, record):
+    """Phase 10: sp30 (BASELINE config 2) cold at k=6 on the all-kernels
+    route under the full contract, through the ladder (6, 10): a k=6 solve
+    that stalls restarts at k=10 from its best iterate."""
+    old = mpmath.mp.prec
+    try:
+        t0 = time.time()
+        cons, b, info = sphere_problem(15)
+        log(f"sp30: front-end {time.time() - t0:.3f} s; blocks {info.Y_blocksizes}, "
+            f"dim_S {info.dim_S}")
+        t0 = time.time()
+        res, rungs = climb(dev, "sp30", cons, b, info, k_ladder=SP30_LADDER)
+        wall = time.time() - t0
+    finally:
+        mpmath.mp.prec = old
+    log(f"sp30: {[(r['k'], r['res'].status, r['res'].iterations) for r in rungs]}, "
+        f"wall {wall:.3f} s")
+    bound_ = check_contract("sp30", res, SP30_BOUND)
+    record["sp30"] = dict(bound=bound_, status=res.status, wall_s=wall, rungs=rung_record(rungs))
+    return rungs
+
+
+def solve_config4(dev, record):
+    """Phase 11: BASELINE config 4, polymin_simplex on the 2-simplex
+    quadratic of tests/test_polymin.py (minimum -3/4) at k=2, counters
+    reset: K1, K2 and K3 must launch."""
+    from clrs_tpu_torch import polymin_simplex
+    from clrs_tpu_torch.models.poly import MPoly
+
+    x, y = MPoly.gens(2)
+    f = x * x + y * y - x * y - x - y
+    reset_counters()
+    t0 = time.time()
+    bound_, res = polymin_simplex(f, 2, d=1, device=dev, precision_k=2)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counters()
+    log(f"config4: bound {bound_!r} status {res.status} iterations {res.iterations} wall "
+        f"{wall:.3f} s; launches {launches}")
+    record["config4"] = dict(bound=bound_, status=res.status, iterations=res.iterations,
+                             wall_s=wall, launches=launches)
+    for name in ("spd_inverse_dd", "schur_pairs", "matmul_dd"):
+        assert launches[name] > 0, f"{name} never launched during the config-4 solve"
+    assert abs(bound_ + 0.75) < 1e-6, f"config4 bound {bound_!r}"
+    return launches
+
+
 def ptxas_report(text: str):
     """Registers, stack and spills of the k-limb kernels (and of the
     out-of-line add and multiply of K5 and K7) at k=3, 10 and 12, of the
@@ -1132,13 +1541,17 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} device {record['device']}")
 
-    # the pool's exit terminates both workers, on success and on failure
+    # the pool's exit terminates its workers, on success and on failure
     with get_context("spawn").Pool(3 + TREE_WORKERS) as pool:
         cpu_k2 = pool.apply_async(cpu_solve, (8, 5, 2))
         cpu_k3 = pool.apply_async(cpu_solve, (8, 5, 3))
         cpu_all = pool.apply_async(cpu_solve, (8, 5, 3, ALL_KERNELS_ROUTE))
         trees = sorted(((k, n) for k in (3, 12) for n in TREE_SIZES), key=lambda kn: -kn[0] * kn[1])
         tree_futures = {kn: pool.apply_async(tree_plain, kn) for kn in trees}
+        cpu_sp16 = pool.apply_async(cpu_sphere, (8, 2, LADDER_PARITY_ITERATIONS))
+        # phase 12's plain versions, wanted last (~480 s of one core's work on
+        # the H100 machine)
+        ladder_futures = {task: pool.apply_async(ladder_plain, (task,)) for task in ladder_tasks()}
 
         from clrs_tpu_torch.ops import _build
 
@@ -1154,16 +1567,36 @@ def main():
         for line in record["ptxas"]:
             log("ptxas: " + line)
 
-        rows = check_kernels(dev, record, dict(sorted(tree_futures.items())))
+        phase_s = record["phase_s"] = {}
+
+        def done(name):
+            phase_s[name] = time.time() - t_start
+            log(f"chip_smoke: {name} done at {phase_s[name]:.1f} s")
+
+        done("build")
+        rows = check_kernels(dev, record, [], dict(sorted(tree_futures.items())))
+        done("kernels")
         launches = {2: solve_config1(dev, record, 2, cpu_k2, 1e-20, 1e-9, None,
                                      ("spd_inverse_dd", "schur_pairs", "matmul_dd"))[0]}
         launches[3], default_k3 = solve_config1(
             dev, record, 3, cpu_k3, None, 1e-12, "optimal",
             ("schur_pairs", "matmul_xf", "spd_inverse_xf"))
+        done("config 1")
         launches["dim24"] = solve_dim24(dev, record)
+        done("dim 24")
         launches["all"] = solve_all_kernels(dev, record, cpu_all, default_k3)
+        done("config 1 all-kernels")
+        solve_sp16_ladder(dev, record, cpu_sp16)
+        done("sp16 ladder")
+        solve_sp30(dev, record)
+        done("sp30")
+        launches["config4"] = solve_config4(dev, record)
+        done("config 4")
+        check_ladder_kernels(dev, rows, ladder_futures)
+        done("sphere-packing kernels")
     profile_all_kernels(dev, record, record["config1_k3_routes"]["steady_it_per_s"]["all-kernels"])
     profile_k1(dev, record)
+    done("profiles")
 
     kernels = kernel_summary(rows, launches)
     record["total_s"] = time.time() - t_start

@@ -9,27 +9,50 @@ has a plain PyTorch version that runs on the CPU.
 
 Layers (bottom-up):
   ops/     k-limb arithmetic, linear algebra, the CUDA kernels
-  core/    block metadata, batching, problem packing, the IPM solver
-  models/  problem front-end: polynomial bases, sample points, prepareabc
-  apps/    applications (the Delsarte LP bound)
+  core/    block metadata, batching, problem packing, the IPM solver,
+           precision escalation (a ladder of limb counts, warm-started)
+  models/  problem front-end: polynomial bases, sample points, prepareabc,
+           solvempmp (polynomial matrix programs)
+  apps/    applications (the Delsarte LP bound, N-species sphere packing,
+           polynomial minimization on the simplex) and SDPB-format export
+           and import
+  utils/   checkpoints of the iterate, the mpmath oracle IPM
 
-The entry points (``solverank1sdp``, ``delsarte_lp_bound``) solve on the
-CUDA card unless given ``device="cpu"``.  Importing the package loads
-neither jax nor clrs_tpu and sets no environment variable.
+The entry points (``solverank1sdp``, ``solve_with_escalation``,
+``solvempmp``, ``delsarte_lp_bound``, ``nsphere_packing_2point``,
+``polymin_simplex``, ``solve_sdpb``, ``load_state``) run on the CUDA card
+unless given ``device="cpu"``.  Importing the package loads neither jax nor
+clrs_tpu and sets no environment variable.
 """
 
 from clrs_tpu_torch.apps.delsarte import delsarte_lp_bound
+from clrs_tpu_torch.apps.polymin import polymin_simplex
+from clrs_tpu_torch.apps.sdpb_export import write_sdpb_files
+from clrs_tpu_torch.apps.sdpb_import import read_sdpb_dir, solve_sdpb
+from clrs_tpu_torch.apps.sphere_packing import nsphere_packing_2point
 from clrs_tpu_torch.core.blockinfo import BlockInfo, get_block_info
+from clrs_tpu_torch.core.escalate import solve_with_escalation
 from clrs_tpu_torch.core.solver import SolverConfig, solverank1sdp
+from clrs_tpu_torch.models.mpmp import solvempmp
 from clrs_tpu_torch.models.prepare import prepareabc
 from clrs_tpu_torch.ops.xfloat import XF
+from clrs_tpu_torch.utils.checkpoint import load_state, save_state
 
 __all__ = [
     "XF",
     "BlockInfo",
     "SolverConfig",
     "solverank1sdp",
+    "solve_with_escalation",
+    "solvempmp",
     "get_block_info",
     "prepareabc",
     "delsarte_lp_bound",
+    "nsphere_packing_2point",
+    "polymin_simplex",
+    "read_sdpb_dir",
+    "solve_sdpb",
+    "write_sdpb_files",
+    "save_state",
+    "load_state",
 ]

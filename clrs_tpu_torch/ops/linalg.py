@@ -24,6 +24,7 @@ import torch
 
 from clrs_tpu_torch.ops.xfloat import (
     XF,
+    _broadcast_shape,
     xf_abs,
     xf_add,
     xf_div,
@@ -97,7 +98,7 @@ def xf_solve_tril(l: XF, b: XF, unit_diag: bool = False) -> XF:
 
 def xf_solve_tril_seq(l: XF, b: XF, unit_diag: bool = False) -> XF:
     n = l.shape[-1]
-    x = XF.zeros(torch.broadcast_shapes(l.shape[:-2], b.shape[:-2]) + b.shape[-2:],
+    x = XF.zeros(_broadcast_shape(l.shape[:-2], b.shape[:-2]) + b.shape[-2:],
                  k=l.k, dtype=l.dtype, device=l.device)
     for i in range(n):
         rowl = l[..., i, :]  # (..., n)
@@ -120,7 +121,7 @@ def xf_solve_triu(u: XF, b: XF, unit_diag: bool = False) -> XF:
 
 def xf_solve_triu_seq(u: XF, b: XF, unit_diag: bool = False) -> XF:
     n = u.shape[-1]
-    x = XF.zeros(torch.broadcast_shapes(u.shape[:-2], b.shape[:-2]) + b.shape[-2:],
+    x = XF.zeros(_broadcast_shape(u.shape[:-2], b.shape[:-2]) + b.shape[-2:],
                  k=u.k, dtype=u.dtype, device=u.device)
     for step in range(n):
         i = n - 1 - step

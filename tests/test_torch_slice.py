@@ -72,8 +72,14 @@ def assert_history_close(ref, got, rel):
             assert abs(a - b) <= rel * max(abs(a), 1e-300), (rj["iter"], key, a, b)
 
 
+NEW_MODULES = ("clrs_tpu_torch.core.escalate", "clrs_tpu_torch.utils.checkpoint",
+               "clrs_tpu_torch.models.mpmp", "clrs_tpu_torch.apps.sphere_packing",
+               "clrs_tpu_torch.apps.polymin", "clrs_tpu_torch.apps.sdpb_export",
+               "clrs_tpu_torch.apps.sdpb_import", "clrs_tpu_torch.utils.oracle")
+
+
 def test_import_loads_neither_jax_nor_reference():
-    code = ("import sys, clrs_tpu_torch; "
+    code = (f"import sys, clrs_tpu_torch, {', '.join(NEW_MODULES)}; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'clrs_tpu' or m.startswith('clrs_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -145,15 +151,39 @@ def test_packing_k3_limb_for_limb(prec):
     assert bool(torch.any(tp.b.limbs[1:] != 0)) == (prec > 53)
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
-    """Without device=, solverank1sdp packs onto the CUDA card and
-    delsarte_lp_bound solves there; on a machine without one both raise
-    instead of running on the CPU."""
-    from clrs_tpu_torch import solverank1sdp
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Without device=, the entry points pack onto the CUDA card and solve
+    (or load) there; on a machine without one each raises instead of
+    running on the CPU, and runs there when given device="cpu"."""
+    from clrs_tpu_torch import (load_state, nsphere_packing_2point, polymin_simplex,
+                                save_state, solve_sdpb, solve_with_escalation, solvempmp,
+                                solverank1sdp, write_sdpb_files)
+    from clrs_tpu_torch.models.poly import MPoly, poly_matrix
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cons, b, info = t_build(N, 1)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        solverank1sdp(cons, b, info, verbose=False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        t_bound(N, 1, verbose=False)
+    x = MPoly.var(0, 1)
+    one = MPoly.constant(1, 1)
+    x0, x1 = MPoly.gens(2)
+    write_sdpb_files(str(tmp_path / "sdp"), cons, info, b)
+    state = tuple(state_from_numpy(
+        np.zeros((2, info.total_dim_S, 1)), np.zeros((2, info.n_y, 1)),
+        *[[[np.ones((2, n, n)) for n in row] for row in info.Y_blocksizes]] * 2, device=CPU))
+    save_state(str(tmp_path / "state.npz"), state, info)
+    quick = dict(verbose=False, maxiterations=1)
+    calls = (
+        lambda **kw: solverank1sdp(cons, b, info, **quick, **kw),
+        lambda **kw: t_bound(N, 1, **quick, **kw),
+        lambda **kw: solve_with_escalation(cons, b, info, k_ladder=(2,), **quick, **kw),
+        lambda **kw: solvempmp([[poly_matrix([[-x]]), poly_matrix([[one]])]],
+                               [[one, x * (one - x)]], [[one, x]], [[0, "0.5", 1]], [2],
+                               [-1.0], **quick, **kw),
+        lambda **kw: nsphere_packing_2point(3, 1, (1, "0.4142"), 2, prec=128, **quick, **kw),
+        lambda **kw: polymin_simplex(x0 * x1, 2, 1, **quick, **kw),
+        lambda **kw: solve_sdpb(str(tmp_path / "sdp"), **quick, **kw),
+        lambda **kw: load_state(str(tmp_path / "state.npz"), info, **kw),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
