@@ -5,9 +5,9 @@
 Phases (any failure raises, and the script exits non-zero):
   1. requires a CUDA device; prints the card's name and power limit, and
      starts the CPU reference solves of phases 4, 5 and 7, the plain
-     versions of phase 3's K5 and K7 tree rows and of phase 12's K5 and
-     K7 rows, and phase 9's CPU run in worker processes (they need no
-     card);
+     versions of phase 3's K5 and K7 tree rows and config-1 rows at k = 6
+     and 10 and of phase 12's K5 and K7 rows, and phase 9's CPU run in
+     worker processes (they need no card);
   2. builds the hand-written kernels (clrs_tpu_torch/csrc, one nvcc per
      source, all at once) and prints the build seconds and ptxas's
      registers and spills of the k-limb kernels at k=3, 10 and 12, of the
@@ -30,7 +30,9 @@ Phases (any failure raises, and the script exits non-zero):
      k = 2, 3, 4, 6, 10, 12; K8 also on broadcast operands read in place
      and on operands of fewer limbs, K5 and K7 also at n = 1, 2, 31, 32,
      33, 64, 65 (every shape of their halving trees) at k = 3 and 12 with
-     one indefinite block: limbs and flags must be bitwise equal; prints
+     one indefinite block (those rows' plain versions, and K5's and K7's at
+     config-1 shapes at k = 6 and 10, ran in the CPU workers on the same
+     inputs): limbs and flags must be bitwise equal; prints
      the kernel's median time of one call, its time per call over a run
      of back-to-back calls, the plain version's median time, and each
      call's bound (bytes over 3.35 TB/s or FP64 instructions over their
@@ -96,12 +98,36 @@ Phases (any failure raises, and the script exits non-zero):
      and 94), and K7's iteration launch over both sides' blocks (up to
      18/16 and 32/30 rows); K5's and K7's plain versions run in the CPU
      workers meanwhile;
- 13. prints the kernels' JSON line, then the result line
+ 13. runs the device-resident loop (core/device_loop.solve_on_device):
+     (a) config 1 at k=3 on the all-kernels route with chunk=1, every
+     history row, the status, the iterations and the bound bitwise phase
+     7's, and the same launches by kernel; with chunk=25 the final state,
+     status and iterations bitwise the chunk=1 run's, and the launches per
+     launched iteration the same; (b) config 1 at k=2 on the default route
+     (K1, K2, K3) with chunk=25: phase 4's status and iterations, and the
+     bound of phase 4's best row (the device loop keeps the post-update
+     state of the best iteration); (c) the launches of every chunk but the
+     first under torch.cuda.set_sync_debug_mode("error") on the all-kernels
+     route at k=2 and k=3 (k=3: (a)'s chunk=25 run; a synchronizing call
+     fails the phase), and on the default route at k=2 ((b)'s run) under
+     "warn", counting the synchronizing calls per iteration by source; (d) both drivers' wall and it/s on
+     config 1 at k=3 on the all-kernels route (phase 7's rows against the
+     device loop's), and the device's busy share over one profiled chunk;
+     (e) sp16 through solve_with_escalation(driver="device_loop") on the
+     all-kernels route under the full contract, the rungs (6, 10) from
+     phase 9's k=4 rung's result (saved with utils/checkpoint and loaded
+     at k=6), their kernels and warm starts checked as in phase 9 (the k=10
+     rung's is the k=6 rung's result re-rounded): it must end `optimal` at
+     0.8150097064427971 to 1e-10; prints each rung beside phase 9's;
+ 14. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} as the last line.
-Phase 8's profiles run after phases 9-12.
+Phase 8's profiles run after phases 9-12, and phase 13 after them: with
+phase 13's profiled chunk before it, phase 8's window on the card showed
+942 of K8's 943 launches per iteration.
 The full record also goes to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -109,6 +135,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from multiprocessing import get_context
 
 import mpmath
@@ -402,19 +429,26 @@ SP_MATMUL_SHAPES = {
              ("sp30 S_j^-1 B (93,93)x(93,94)", (1, 93, 93, 94)),
              ("sp30 B^T S_j^-1 B (94,93)x(93,94)", (1, 94, 93, 94)))}
 # K1 (k=2) and K5 (B, n, cond): S_j of the m=1 group and of the main
-# cluster, and Q
+# cluster, and Q; "config1" holds phase 3's config-1 shapes, whose K5 rows
+# at CONFIG1_CPU_KS take their plain versions from the CPU workers too
 SP_INVERSE_SHAPES = {
+    "config1": INVERSE_SHAPES,
     "sp16": (("sp16 S_j 3x17x17", (3, 17, 1e8)), ("sp16 S_j 1x51x51", (1, 51, 1e8)),
              ("sp16 Q 1x52x52", (1, 52, 1e6))),
     "sp30": (("sp30 S_j 3x31x31", (3, 31, 1e8)), ("sp30 S_j 1x93x93", (1, 93, 1e8)),
              ("sp30 Q 1x94x94", (1, 94, 1e6)))}
 # K7's iteration launch: (n, count) per block size of one side, X's and
 # Y's in one launch (the 1x1 blocks take the closed form)
-SP_STEPLEN_BLOCKS = {"sp16": ((9, 3), (8, 3), (2, 1), (18, 1), (16, 1)),
+SP_STEPLEN_BLOCKS = {"config1": ((6, 1), (5, 1)),
+                     "sp16": ((9, 3), (8, 3), (2, 1), (18, 1), (16, 1)),
                      "sp30": ((16, 3), (15, 3), (2, 1), (32, 1), (30, 1))}
 # K5 and K7 where the halving tree changes shape (csrc/chol_xf.cuh)
 TREE_SIZES = (1, 2, 31, 32, 33, 64, 65)
 TREE_WORKERS = 4  # CPU processes for the tree rows' plain versions
+# phase 3's K5 and K7 rows at config-1 shapes at these k: their plain
+# versions take ~110 s of small launches on the card (41 s for K7's
+# iteration launch at k=10), a few seconds each in the CPU workers
+CONFIG1_CPU_KS = (6, 10)
 
 
 def schur_operands(rng, k, G, m, K, rmax, dev):
@@ -439,29 +473,31 @@ def tree_inputs(k, n):
     return a, m, ((d + d.transpose(-1, -2)) / 2).contiguous()
 
 
-def tree_plain(k, n):
-    """K5's and K7's plain versions on tree_inputs(k, n), in a CPU worker
-    (at k=12 and n = 64, 65 they take minutes of small launches on the
-    card): outputs, flags and seconds."""
+def tree_plain(k, n, kernel):
+    """K5's ("k5") or K7's ("k7") plain version on tree_inputs(k, n), in a
+    CPU worker (at k=12 and n = 64, 65 each takes minutes of small launches
+    on the card, ~2 min on the CPU, so the two run as tasks of their own):
+    outputs, flags and seconds."""
     torch.set_num_threads(1)
     from clrs_tpu_torch.ops import cuda_xf
 
     a, m, d = tree_inputs(k, n)
     t0 = time.time()
-    inv, ok = cuda_xf.spd_inverse_xf_torch(a)
-    t1 = time.time()
+    if kernel == "k5":
+        inv, ok = cuda_xf.spd_inverse_xf_torch(a)
+        return dict(inv=inv.numpy(), ok=ok.numpy(), k5_s=time.time() - t0)
     w, okw = cuda_xf.steplen_sandwich_xf_torch(m, d)
-    return dict(inv=inv.numpy(), ok=ok.numpy(), w=w.numpy(), okw=okw.numpy(),
-                k5_s=t1 - t0, k7_s=time.time() - t1)
+    return dict(w=w.numpy(), okw=okw.numpy(), k7_s=time.time() - t0)
 
 
-def ladder_tasks():
-    """The sphere-packing rows whose plain versions run in CPU workers
-    (ladder_plain), longest first: K5 on each SP_INVERSE_SHAPES entry and
-    K7 on each (side, block size) group of SP_STEPLEN_BLOCKS, at every
-    rung of the solve (K5 from k=3: K1 takes k=2 on the card)."""
+def ladder_tasks(rungs=None):
+    """The rows whose plain versions run in CPU workers (ladder_plain),
+    longest first: K5 on each SP_INVERSE_SHAPES entry and K7 on each
+    (side, block size) group of SP_STEPLEN_BLOCKS, at every rung of rungs
+    (default SP_RUNGS, the sphere-packing solves; K5 from k=3: K1 takes k=2
+    on the card)."""
     tasks = []
-    for sp, ks in SP_RUNGS.items():
+    for sp, ks in (rungs or SP_RUNGS).items():
         for k in ks:
             if k > 2:
                 tasks += [("spd_inverse_xf", sp, k, i) for i in range(len(SP_INVERSE_SHAPES[sp]))]
@@ -565,8 +601,44 @@ def flat(groups):  # W and flags of every K7 group, as one float64 vector
     return torch.cat([w.reshape(-1) for w, _ in groups] + [ok.double() for _, ok in groups])
 
 
-def check_kernels(dev, record, rows, tree_futures):
-    """Phase 3: every kernel bitwise against its plain version."""
+def inverse_row_from_cpu(case, sp, k, i, dev, futures, reps, main):
+    """K5 on entry i of SP_INVERSE_SHAPES[sp] at k against its plain
+    version, computed in a CPU worker on the same inputs (ladder_plain),
+    whose time is that of the row."""
+    from clrs_tpu_torch.ops import cuda_xf
+
+    label, (B, n, _) = SP_INVERSE_SHAPES[sp][i]
+    task = ("spd_inverse_xf", sp, k, i)
+    (a,) = (x.to(dev) for x in ladder_inputs(task))
+    plain = futures[task].get()
+    want = tuple(torch.from_numpy(x).to(dev) for x in plain["out"])
+    row = case("spd_inverse_xf", k, label, cuda_xf.spd_inverse_xf, lambda *_: want, (a,),
+               spd_inverse_work(k, B, n), reps, 0, main, plain_ms=1e3 * plain["s"])
+    row["plain_device"] = "cpu"
+    return row
+
+
+def steplen_groups(sp, k, dev, futures):
+    """K7's iteration launch of SP_STEPLEN_BLOCKS[sp] at k: the groups (each
+    side's blocks of one size, M read in place, dM a transposed view) on
+    the card, and per group the plain version's outputs and seconds from
+    the CPU workers (ladder_plain) and the work."""
+    groups, want, secs, work = [], [], [], []
+    for side in range(2):
+        for i, (n, count) in enumerate(SP_STEPLEN_BLOCKS[sp]):
+            task = ("steplen_xf", sp, k, (side, i))
+            m, d = (x.to(dev) for x in ladder_inputs(task))
+            groups.append((list(m.unbind(0)), [x.transpose(-1, -2) for x in d.unbind(0)]))
+            plain = futures[task].get()
+            want.append(tuple(torch.from_numpy(x).to(dev) for x in plain["out"]))
+            secs.append(plain["s"])
+            work.append(steplen_work(k, count, n))
+    return groups, want, secs, work
+
+
+def check_kernels(dev, record, rows, tree_futures, config1_futures):
+    """Phase 3: every kernel bitwise against its plain version (K5's and
+    K7's at CONFIG1_CPU_KS from config1_futures, the CPU workers')."""
     from clrs_tpu_torch.ops import cuda_dd, cuda_xf
 
     rng = np.random.default_rng(0)
@@ -629,7 +701,10 @@ def check_kernels(dev, record, rows, tree_futures):
             case("matmul_xf (K4, K6)", k, label, cuda_xf.matmul_xf, cuda_xf.matmul_xf_torch,
                  (a, b), matmul_work(k, B, n, K, m, cuda_xf.padded_contraction(K)), 50,
                  plain_reps, True)
-        for label, (B, n, cond) in INVERSE_SHAPES:
+        for i, (label, (B, n, cond)) in enumerate(INVERSE_SHAPES):
+            if k in CONFIG1_CPU_KS:
+                inverse_row_from_cpu(case, "config1", k, i, dev, config1_futures, 20, True)
+                continue
             a = spd_batch(rng, B, n, k, cond, dev)
             case("spd_inverse_xf", k, label, cuda_xf.spd_inverse_xf,
                  cuda_xf.spd_inverse_xf_torch, (a,), spd_inverse_work(k, B, n), 20,
@@ -656,52 +731,50 @@ def check_kernels(dev, record, rows, tree_futures):
 
     for k in STEPLEN_LADDER:
         # the iteration's one launch: X's and Y's 6x6 and 5x5 blocks, each
-        # a (k, n, n) view read in place, dM a transposed one
-        groups = []
-        for n in (6, 5, 6, 5):
-            m, d = sandwich_inputs(1, n, k, 1e6)
-            groups.append(([m[0]], [d[0].transpose(-1, -2)]))
-        work = [steplen_work(k, 1, n) for n in (6, 5, 6, 5)]
+        # a (k, n, n) view read in place, dM a transposed one; then each
+        # size alone, at CONFIG1_CPU_KS on X's groups of that launch, every
+        # plain version from the CPU workers
+        on_cpu = k in CONFIG1_CPU_KS
+        if on_cpu:
+            groups, want, secs, work = steplen_groups("config1", k, dev, config1_futures)
+            plain, plain_ms = (lambda *_: want), 1e3 * sum(secs)
+        else:
+            groups = []
+            for n in (6, 5, 6, 5):
+                m, d = sandwich_inputs(1, n, k, 1e6)
+                groups.append(([m[0]], [d[0].transpose(-1, -2)]))
+            work = [steplen_work(k, 1, n) for n in (6, 5, 6, 5)]
+            plain, plain_ms = (lambda g: [
+                cuda_xf.steplen_sandwich_xf_torch(torch.stack(ms), torch.stack(ds))
+                for ms, ds in g]), None
         row = case("steplen_xf", k, "iteration X, Y x (1x6x6, 1x5x5)",
-                   cuda_xf.steplen_sandwich_xf_groups,
-                   lambda g: [cuda_xf.steplen_sandwich_xf_torch(torch.stack(ms), torch.stack(ds))
-                              for ms, ds in g],
-                   (groups,), tuple(map(sum, zip(*work))), 20, 1 if k < 6 else 0, True,
-                   view=flat)
+                   cuda_xf.steplen_sandwich_xf_groups, plain,
+                   (groups,), tuple(map(sum, zip(*work))), 20, 0 if on_cpu else 1, True,
+                   plain_ms=plain_ms, view=flat)
         per_size = flat([cuda_xf.steplen_sandwich_xf(torch.stack(ms), torch.stack(ds))
                          for ms, ds in groups])
         assert bits_equal(per_size, flat(cuda_xf.steplen_sandwich_xf_groups(groups))), \
             f"steplen_xf k={k}: one launch differs from a launch per size"
         row["equals_per_size_launches"] = True
-        for label, (B, n) in (("1x6x6", (1, 6)), ("1x5x5", (1, 5))):
+        if on_cpu:
+            row["plain_device"] = "cpu"
+        for i, (label, (B, n)) in enumerate((("1x6x6", (1, 6)), ("1x5x5", (1, 5)))):
+            if on_cpu:
+                ms, ds = groups[i]
+                row = case("steplen_xf", k, label, cuda_xf.steplen_sandwich_xf,
+                           lambda *_, w=want[i]: w, (torch.stack(ms), torch.stack(ds)),
+                           steplen_work(k, B, n), 20, 0, True, plain_ms=1e3 * secs[i])
+                row["plain_device"] = "cpu"
+                continue
             case("steplen_xf", k, label, cuda_xf.steplen_sandwich_xf,
                  cuda_xf.steplen_sandwich_xf_torch, sandwich_inputs(B, n, k, 1e6),
-                 steplen_work(k, B, n), 20, 1 if k < 6 else 0, True)
+                 steplen_work(k, B, n), 20, 1, True)
     m, d = sandwich_inputs(64, 32, 3, 1e10)
     m[5, 0, 4, 4] = -1e3
     row = case("steplen_xf", 3, "wide 64x32x32 (1 indefinite)", cuda_xf.steplen_sandwich_xf,
                cuda_xf.steplen_sandwich_xf_torch, (m, d), steplen_work(3, 64, 32), 5, 1,
                False)
     assert row["flags"][5] is False, "K7: the indefinite block was not flagged"
-
-    # K5 and K7 at every shape of their dot products' halving tree (one term
-    # per lane, a group below a warp, a warp, terms kept in the lane), two
-    # blocks of which the second is indefinite; their plain versions ran in
-    # CPU workers on the same inputs (tree_plain), and their times are those
-    for (k, n), future in tree_futures.items():
-        a, m, d = (x.to(dev) for x in tree_inputs(k, n))
-        plain = future.get()
-        for name, kern, args, outs, secs, work in (
-                ("spd_inverse_xf", cuda_xf.spd_inverse_xf, (a,), ("inv", "ok"), "k5_s",
-                 spd_inverse_work(k, 2, n)),
-                ("steplen_xf", cuda_xf.steplen_sandwich_xf, (m, d), ("w", "okw"), "k7_s",
-                 steplen_work(k, 2, n))):
-            want = tuple(torch.from_numpy(plain[o]).to(dev) for o in outs)
-            row = case(name, k, f"tree 2x{n}x{n} (1 indefinite)", kern,
-                       lambda *_, want=want: want, args, work, 5, 0, False,
-                       plain_ms=1e3 * plain[secs])
-            row["plain_device"] = "cpu"
-            assert row["flags"] == [True, False], f"{name} n={n}: flags {row['flags']}"
 
     # K8 at every k, add and multiply, at the solver's shapes and wide; at
     # k >= 5 (equal-k operands) it computes xfloat's own sequences
@@ -791,6 +864,26 @@ def check_kernels(dev, record, rows, tree_futures):
         a[1, 0, n // 2, n // 2] = -1.0
         plain = wide_row(f"tree 2x{n}x{n} (1 indefinite)", a, 1)
         wide_row(f"tree 2x{n}x{n} batch-minor", batch_minor(a), 1, plain)
+
+    # K5 and K7 at every shape of their dot products' halving tree (one term
+    # per lane, a group below a warp, a warp, terms kept in the lane), two
+    # blocks of which the second is indefinite; their plain versions ran in
+    # CPU workers on the same inputs (tree_plain), and their times are those;
+    # last, so that the card checks K8 and K9 while the workers finish
+    for (k, n), futures in tree_futures.items():
+        a, m, d = (x.to(dev) for x in tree_inputs(k, n))
+        plain = dict(futures[0].get(), **futures[1].get())
+        for name, kern, args, outs, secs, work in (
+                ("spd_inverse_xf", cuda_xf.spd_inverse_xf, (a,), ("inv", "ok"), "k5_s",
+                 spd_inverse_work(k, 2, n)),
+                ("steplen_xf", cuda_xf.steplen_sandwich_xf, (m, d), ("w", "okw"), "k7_s",
+                 steplen_work(k, 2, n))):
+            want = tuple(torch.from_numpy(plain[o]).to(dev) for o in outs)
+            row = case(name, k, f"tree 2x{n}x{n} (1 indefinite)", kern,
+                       lambda *_, want=want: want, args, work, 5, 0, False,
+                       plain_ms=1e3 * plain[secs])
+            row["plain_device"] = "cpu"
+            assert row["flags"] == [True, False], f"{name} n={n}: flags {row['flags']}"
     record["kernel_checks"] = rows
     return rows
 
@@ -832,30 +925,14 @@ def check_ladder_kernels(dev, rows, futures):
                          cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, B, n), 20, 1,
                          False)
             else:
-                for i, (label, (B, n, _)) in enumerate(SP_INVERSE_SHAPES[sp]):
-                    task = ("spd_inverse_xf", sp, k, i)
-                    (a,) = (x.to(dev) for x in ladder_inputs(task))
-                    plain = futures[task].get()
-                    want = tuple(torch.from_numpy(x).to(dev) for x in plain["out"])
-                    row = case("spd_inverse_xf", k, label, cuda_xf.spd_inverse_xf,
-                               lambda *_, want=want: want, (a,), spd_inverse_work(k, B, n), 5, 0,
-                               False, plain_ms=1e3 * plain["s"])
-                    row["plain_device"] = "cpu"
-            groups, want, work, secs = [], [], [], 0.0
-            for side in range(2):
-                for i, (n, count) in enumerate(SP_STEPLEN_BLOCKS[sp]):
-                    task = ("steplen_xf", sp, k, (side, i))
-                    m, d = (x.to(dev) for x in ladder_inputs(task))
-                    groups.append((list(m.unbind(0)), [x.transpose(-1, -2) for x in d.unbind(0)]))
-                    plain = futures[task].get()
-                    want.append(tuple(torch.from_numpy(x).to(dev) for x in plain["out"]))
-                    work.append(steplen_work(k, count, n))
-                    secs += plain["s"]
+                for i in range(len(SP_INVERSE_SHAPES[sp])):
+                    inverse_row_from_cpu(case, sp, k, i, dev, futures, 5, False)
+            groups, want, secs, work = steplen_groups(sp, k, dev, futures)
             sizes = ", ".join(f"{c}x{n}x{n}" for n, c in SP_STEPLEN_BLOCKS[sp])
             row = case("steplen_xf", k, f"{sp} iteration X, Y x ({sizes})",
                        cuda_xf.steplen_sandwich_xf_groups, lambda *_, want=want: want,
                        (groups,), tuple(map(sum, zip(*work))), 5, 0, False,
-                       plain_ms=1e3 * secs, view=flat)
+                       plain_ms=1e3 * sum(secs), view=flat)
             row["plain_device"] = "cpu"
     return rows
 
@@ -994,7 +1071,7 @@ def solve_all_kernels(dev, record, cpu_future, default):
         f"{n}={v / res.iterations:.2f}" for n, v in launches.items()))
     record["config1_k3_routes"] = dict(steady_it_per_s=steady, default_ms=a,
                                        all_kernels_ms=b)
-    return launches
+    return launches, res
 
 
 PROFILE_ITERATIONS = (3, 6)  # the window: iterations 3 to 6 of the solve
@@ -1480,6 +1557,342 @@ def solve_config4(dev, record):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the device-resident loop
+# ---------------------------------------------------------------------------
+
+DL_CHUNK = 25  # solve_on_device's default chunk
+SYNC_CHUNK, SYNC_ITERATIONS = 5, 10  # the sync checks: chunks after the first are watched
+PROFILE_CHUNK = 2  # the profiled chunk: iterations 3-4
+DL_LADDER_FROM = 4  # (e) climbs the rungs above phase 9's k=4 rung, from its result
+DL_LADDER = (6, 10)
+
+
+class LoopWatch:
+    """While on, counts the device loop's launched iterations
+    (DeviceSolve.body calls) and its chunks, and runs around(n), a context
+    manager, around the launches of chunk n (1-based; the chunk's one read
+    comes after, outside it)."""
+
+    def __init__(self, around=None):
+        from clrs_tpu_torch.core.device_loop import DeviceSolve
+
+        self.cls, self.around = DeviceSolve, around
+        self.body, self.run_chunk = DeviceSolve.body, DeviceSolve.run_chunk
+        self.launched = self.chunks = 0
+
+    def __enter__(self):
+        watch = self
+
+        def body(loop, *args):
+            watch.launched += 1
+            return watch.body(loop, *args)
+
+        def run_chunk(loop, *args):
+            watch.chunks += 1
+            with (watch.around(watch.chunks) if watch.around else contextlib.nullcontext()):
+                return watch.run_chunk(loop, *args)
+
+        self.cls.body, self.cls.run_chunk = body, run_chunk
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.body, self.cls.run_chunk = self.body, self.run_chunk
+
+
+def dl_config1(dev, k, route, chunk, around=None, **options):
+    """Config 1 (Delsarte dim 8, 2d=10) at k limbs through solve_on_device on
+    the card, counters reset first: (result, measures)."""
+    from clrs_tpu_torch.apps.delsarte import build_delsarte_constraints
+    from clrs_tpu_torch.core.device_loop import solve_on_device
+    from clrs_tpu_torch.core.problem import pack_constraints
+
+    cons, b, info = build_delsarte_constraints(8, 5)
+    problem = pack_constraints(cons, b, info=info, k=k, device=dev)
+    reset_counters()
+    with LoopWatch(around) as watch:
+        t0 = time.time()
+        res = solve_on_device(problem, chunk=chunk, **route, **dict(SOLVE, **options))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    return res, dict(bound=1.0 - res.dual_objective, wall_s=wall, launches=read_counters(),
+                     launched=watch.launched, chunks=watch.chunks)
+
+
+def f64(x):
+    return torch.tensor(x, dtype=torch.float64)
+
+
+def rows_equal(a, b):
+    """Two histories equal row for row, bit for bit (all but the time)."""
+    return len(a) == len(b) and all(
+        set(ra) == set(rb) and all(bits_equal(f64(ra[key]), f64(rb[key]))
+                                   for key in ra if key != "time")
+        for ra, rb in zip(a, b))
+
+
+def result_leaves(res):
+    return [res.x.limbs, res.y.limbs] + [t.limbs for row in res.X + res.Y for t in row]
+
+
+def rate(history, first, last=None):
+    """it/s over iterations first+1..last (default: the last row's), from
+    the rows' time stamps (each taken after its iteration's host read)."""
+    by_iter = {int(r["iter"]): r["time"] for r in history}
+    last = last or max(by_iter)
+    return (last - first) / max(by_iter[last] - by_iter[first], 1e-12)
+
+
+def best_row(history):
+    """The phase driver's best iterate: the first row of least merit."""
+    merits = [max(abs(r["gap"]), r["P_err"], r["p_err"], r["d_err"]) for r in history]
+    return merits.index(min(merits))
+
+
+@contextlib.contextmanager
+def sync_mode(mode, caught=None):
+    """torch.cuda.set_sync_debug_mode(mode) inside; under "warn" every
+    synchronizing call's warning is kept in caught."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    if caught is not None:
+        caught.extend(w for w in seen if "synchronizing" in str(w.message))
+
+
+def profile_chunk(dev, record):
+    """torch.profiler over one chunk of the device loop (iterations 3-4 of
+    config 1 at k=3 on the all-kernels route), from its first launch to the
+    device's end: the device's busy time per iteration and its share of the
+    chunk's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    @contextlib.contextmanager
+    def around(n):
+        if n != 2:
+            yield
+            return
+        torch.cuda.synchronize()
+        prof.start()
+        t0 = time.perf_counter()
+        try:
+            yield
+            torch.cuda.synchronize()
+        finally:
+            window["wall_s"] = time.perf_counter() - t0
+            prof.stop()
+
+    dl_config1(dev, 3, ALL_KERNELS_ROUTE, PROFILE_CHUNK, around,
+               maxiterations=2 * PROFILE_CHUNK)
+    assert "wall_s" in window, "the device-loop profile window did not close"
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return dict(iterations=PROFILE_CHUNK, wall_ms_per_iter=1e3 * window["wall_s"] / PROFILE_CHUNK,
+                device_busy_ms_per_iter=busy_us / 1e3 / PROFILE_CHUNK,
+                busy_share=busy_us / 1e6 / window["wall_s"])
+
+
+def climb_device_loop(dev, cons, b, info, ladder, start):
+    """solve_with_escalation(driver="device_loop", k_ladder=ladder) on the
+    card on the all-kernels route, its first rung warm-started from start
+    (a rung's SolveResult, through a checkpoint file saved and loaded at the
+    first rung's k), each rung's counters reset before it and read after,
+    its warm start held bitwise against the last result re-rounded."""
+    from clrs_tpu_torch import load_state, save_state
+    from clrs_tpu_torch.core import escalate
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "sp16_device_loop_start.npz")
+    save_state(path, (start.x, start.y, start.X, start.Y), info)
+    warm, _ = load_state(path, info, k=ladder[0], device=dev)
+    rungs = []
+    solve_fn = escalate.solve_on_device
+
+    def rung(problem, initial_solutions=(), **kwargs):
+        k = problem.b.k
+        if not rungs:  # solve_with_escalation starts cold; this ladder starts warm
+            initial_solutions = warm
+        got = [t.limbs for t in initial_solutions[:2]] + [
+            t.limbs for row in initial_solutions[2] + initial_solutions[3] for t in row]
+        want = reround_leaves(rungs[-1]["res"] if rungs else start, k)
+        assert len(got) == len(want) and all(map(bits_equal, got, want)), \
+            f"sp16 device loop k={k}: the warm start is not the last result"
+        reset_counters()
+        t0 = time.time()
+        res = solve_fn(problem, initial_solutions=initial_solutions, **kwargs)
+        torch.cuda.synchronize()
+        rungs.append(dict(k=k, res=res, wall_s=time.time() - t0, launches=read_counters()))
+        expect = RUNG_KERNELS[min(k, 3)]
+        for name, n in rungs[-1]["launches"].items():
+            assert (n > 0) == (name in expect), f"sp16 device loop k={k}: {name} launched {n} times"
+        return res
+
+    escalate.solve_on_device = rung
+    try:
+        res = escalate.solve_with_escalation(cons, b, info, device=dev, verbose=False,
+                                             driver="device_loop", k_ladder=ladder,
+                                             **ALL_KERNELS_ROUTE, **LADDER_SOLVE)
+    finally:
+        escalate.solve_on_device = solve_fn
+    return res, rungs
+
+
+def device_loop_phase(dev, record, phase7, phase7_launches, phase4, sp16_rungs):
+    """Phase 13: config 1 and the sp16 ladder through the device loop,
+    held against the phase driver's solves of phases 4, 7 and 9."""
+    out = record["device_loop"] = {}
+    sync = out["sync"] = {}
+    t0 = time.time()
+
+    def watched(mode):  # every chunk after the first under mode
+        return lambda n: sync_mode(mode) if n > 1 else contextlib.nullcontext()
+
+    def timed(part):
+        log(f"device loop: ({part}) done {time.time() - t0:.1f} s into the phase")
+
+    # (a) config 1 at k=3, all-kernels route: chunk=1 row for row, then
+    # chunk=25 bitwise chunk=1's result, its second chunk launched under
+    # set_sync_debug_mode("error") (part of (c))
+    res1, m1 = dl_config1(dev, 3, ALL_KERNELS_ROUTE, 1)
+    same_rows = rows_equal(res1.history, phase7.history)
+    log(f"device loop config1 k=3 all-kernels chunk=1: status {res1.status} iterations "
+        f"{res1.iterations} bound {m1['bound']!r}; rows bitwise phase 7's: {same_rows}; "
+        f"launches {m1['launches']}")
+    assert same_rows, "device loop chunk=1: a row differs from the phase driver's"
+    assert (res1.status, res1.iterations) == (phase7.status, phase7.iterations)
+    assert bits_equal(f64(res1.dual_objective), f64(phase7.dual_objective))
+    assert m1["launches"] == phase7_launches, (m1["launches"], phase7_launches)
+    assert m1["launched"] == res1.iterations
+    res25, m25 = dl_config1(dev, 3, ALL_KERNELS_ROUTE, DL_CHUNK, watched("error"))
+    sync["all_k3"] = dict(iterations_watched=res25.iterations - DL_CHUNK, syncs=0)
+    log(f"device loop sync check, all-kernels k=3: iterations {DL_CHUNK + 1}-"
+        f"{res25.iterations} launched under set_sync_debug_mode('error'): no synchronizing call")
+    same_state = all(map(bits_equal, result_leaves(res25), result_leaves(res1)))
+    wasted = m25["launched"] - res25.iterations
+    log(f"device loop config1 k=3 all-kernels chunk={DL_CHUNK}: status {res25.status} "
+        f"iterations {res25.iterations} in {m25['chunks']} chunks, {m25['launched']} launched "
+        f"({wasted} after the end); final state bitwise chunk=1's: {same_state}")
+    assert same_state and (res25.status, res25.iterations) == (res1.status, res1.iterations)
+    per_iter = {}
+    for name, n in m1["launches"].items():
+        assert n % res1.iterations == 0, f"{name}: {n} launches over {res1.iterations} iterations"
+        per_iter[name] = n // res1.iterations
+        assert m25["launches"][name] == per_iter[name] * m25["launched"], (name, m25["launches"])
+    log(f"device loop: launches per iteration (phase driver and device loop alike): {per_iter}")
+    out["config1_k3_all"] = dict(status=res1.status, iterations=res1.iterations,
+                                 bound=m1["bound"], rows_bitwise_phase7=same_rows,
+                                 chunk25_state_bitwise=same_state, launched_chunk25=m25["launched"],
+                                 wasted_after_end_chunk25=wasted, launches_per_iter=per_iter)
+    timed("a")
+
+    # (d) both drivers' it/s and wall, config 1 k=3 all-kernels, this call
+    drivers = {"phase driver (phase 7)": phase7.history, "device loop chunk=1": res1.history,
+               f"device loop chunk={DL_CHUNK}": res25.history}
+    speed = out["speed"] = {}
+    for name, hist in drivers.items():
+        s = speed[name] = dict(wall_s=hist[-1]["time"], iterations=int(hist[-1]["iter"]),
+                               it_s_after_25=rate(hist, DL_CHUNK))
+        if len(hist) > 2:
+            s["steady_it_s"] = rate(hist, 2)
+        log(f"device loop speed, {name}: wall {s['wall_s']:.4f} s for {s['iterations']} "
+            f"iterations; steady (iterations 3-) "
+            + (f"{s['steady_it_s']:.4f} it/s ({1e3 / s['steady_it_s']:.2f} ms/iter)"
+               if "steady_it_s" in s else "not measured (one row a chunk)")
+            + f"; iterations {DL_CHUNK + 1}- {s['it_s_after_25']:.4f} it/s "
+              f"({1e3 / s['it_s_after_25']:.2f} ms/iter)")
+    prof = out["profile"] = profile_chunk(dev, record)
+    unprofiled = prof["device_busy_ms_per_iter"] * speed[f"device loop chunk={DL_CHUNK}"][
+        "it_s_after_25"] / 1e3
+    prof["busy_share_of_unprofiled_iteration"] = unprofiled
+    log(f"device loop profile (chunk of iterations 3-4): wall {prof['wall_ms_per_iter']:.2f} "
+        f"ms/iter under the profiler, device busy {prof['device_busy_ms_per_iter']:.3f} ms/iter: "
+        f"busy share {prof['busy_share']:.4f} of the profiled chunk, {unprofiled:.4f} of the "
+        f"unprofiled chunk=25 iteration")
+    timed("d")
+
+    # (c) no synchronizing call inside a chunk on the all-kernels route at
+    # k=2 (k=3 in (a)); the default route's counted in (b)
+    res, m = dl_config1(dev, 2, ALL_KERNELS_ROUTE, SYNC_CHUNK, watched("error"),
+                        maxiterations=SYNC_ITERATIONS)
+    sync["all_k2"] = dict(iterations_watched=res.iterations - SYNC_CHUNK, syncs=0)
+    log(f"device loop sync check, all-kernels k=2: iterations {SYNC_CHUNK + 1}-"
+        f"{res.iterations} launched under set_sync_debug_mode('error'): no synchronizing call")
+    assert res.iterations == SYNC_ITERATIONS
+    timed("c")
+
+    # (b) config 1 at k=2, default route (K1, K2, K3), chunk=25, against
+    # phase 4; every chunk after the first under set_sync_debug_mode("warn"),
+    # each synchronizing call kept with its source
+    caught = []
+    r2, m2 = dl_config1(dev, 2, {}, DL_CHUNK,
+                        lambda n: sync_mode("warn", caught) if n > 1 else contextlib.nullcontext())
+    if phase4.status == "stalled":
+        # the reference's device loop keeps the post-update state of the best
+        # iteration, the phase driver the state entering it
+        want = 1.0 - phase4.history[best_row(phase4.history)]["d_obj"]
+    else:
+        want = 1.0 - phase4.dual_objective
+    log(f"device loop config1 k=2 default chunk={DL_CHUNK}: status {r2.status} iterations "
+        f"{r2.iterations} bound {m2['bound']!r}, wall {m2['wall_s']:.3f} s (phase 4: "
+        f"{phase4.status} {phase4.iterations} {1.0 - phase4.dual_objective!r}; its best row's "
+        f"post-update bound {want!r}); launches {m2['launches']}")
+    assert (r2.status, r2.iterations) == (phase4.status, phase4.iterations)
+    assert m2["bound"] == want, (m2["bound"], want)
+    for name in ("spd_inverse_dd", "schur_pairs", "matmul_dd"):
+        assert m2["launches"][name] > 0, f"{name} never launched in the device loop at k=2"
+    out["config1_k2_default"] = dict(
+        status=r2.status, iterations=r2.iterations, bound=m2["bound"],
+        phase4_bound=1.0 - phase4.dual_objective, launches=m2["launches"], wall_s=m2["wall_s"])
+    watched_iters = r2.iterations - DL_CHUNK
+    sources = {}
+    for w in caught:
+        where = f"{os.path.relpath(w.filename)}:{w.lineno}"
+        sources[where] = sources.get(where, 0) + 1
+    sync["default_k2"] = dict(iterations_watched=watched_iters,
+                              syncs_per_iter=len(caught) / watched_iters,
+                              sources={src: n / watched_iters for src, n in sources.items()})
+    log(f"device loop sync count, default route k=2: {len(caught) / watched_iters:.2f} "
+        f"synchronizing calls per iteration over iterations {DL_CHUNK + 1}-{r2.iterations}; "
+        f"by source (per iteration): {sync['default_k2']['sources']}")
+    timed("b")
+
+    # (e) the sp16 ladder through driver="device_loop", from phase 9's k=4
+    # rung's result
+    start = next(r["res"] for r in sp16_rungs if r["k"] == DL_LADDER_FROM)
+    old = mpmath.mp.prec
+    try:
+        cons, b, info = sphere_problem(8)  # mpmath at SP_PREC for every rung's packing
+        t1 = time.time()
+        res, rungs = climb_device_loop(dev, cons, b, info, DL_LADDER, start)
+        wall = time.time() - t1
+    finally:
+        mpmath.mp.prec = old
+    phase9 = {p["k"]: p for p in sp16_rungs}
+    for r in rungs:
+        p = phase9.get(r["k"])
+        log(f"sp16 device-loop ladder rung k={r['k']}: {r['res'].status} {r['res'].iterations} "
+            f"iterations, wall {r['wall_s']:.3f} s, launches {r['launches']}"
+            + (f" (phase 9: {p['res'].status} {p['res'].iterations} iterations, "
+               f"{p['wall_s']:.3f} s)" if p else " (phase 9 had no such rung)"))
+    log(f"sp16 device-loop ladder from phase 9's k={DL_LADDER_FROM} rung: wall {wall:.3f} s "
+        f"(phase 9's rungs above it: "
+        f"{sum(p['wall_s'] for k, p in phase9.items() if k > DL_LADDER_FROM):.3f} s)")
+    bound_ = check_contract("sp16 device-loop ladder", res, SP16_BOUND)
+    out["sp16_ladder"] = dict(
+        bound=bound_, status=res.status, wall_s=wall, started_from_k=DL_LADDER_FROM,
+        rungs=[dict(k=r["k"], status=r["res"].status, iterations=r["res"].iterations,
+                    wall_s=r["wall_s"], launches=r["launches"]) for r in rungs])
+    timed("e")
+
+
 def ptxas_report(text: str):
     """Registers, stack and spills of the k-limb kernels (and of the
     out-of-line add and multiply of K5 and K7) at k=3, 10 and 12, of the
@@ -1547,7 +1960,10 @@ def main():
         cpu_k3 = pool.apply_async(cpu_solve, (8, 5, 3))
         cpu_all = pool.apply_async(cpu_solve, (8, 5, 3, ALL_KERNELS_ROUTE))
         trees = sorted(((k, n) for k in (3, 12) for n in TREE_SIZES), key=lambda kn: -kn[0] * kn[1])
-        tree_futures = {kn: pool.apply_async(tree_plain, kn) for kn in trees}
+        config1_futures = {task: pool.apply_async(ladder_plain, (task,))
+                           for task in ladder_tasks({"config1": CONFIG1_CPU_KS})}
+        tree_futures = {kn: [pool.apply_async(tree_plain, kn + (kernel,)) for kernel in ("k5", "k7")]
+                        for kn in trees}
         cpu_sp16 = pool.apply_async(cpu_sphere, (8, 2, LADDER_PARITY_ITERATIONS))
         # phase 12's plain versions, wanted last (~480 s of one core's work on
         # the H100 machine)
@@ -1574,19 +1990,21 @@ def main():
             log(f"chip_smoke: {name} done at {phase_s[name]:.1f} s")
 
         done("build")
-        rows = check_kernels(dev, record, [], dict(sorted(tree_futures.items())))
+        rows = check_kernels(dev, record, [], dict(sorted(tree_futures.items())),
+                             config1_futures)
         done("kernels")
-        launches = {2: solve_config1(dev, record, 2, cpu_k2, 1e-20, 1e-9, None,
-                                     ("spd_inverse_dd", "schur_pairs", "matmul_dd"))[0]}
+        launches = {}
+        launches[2], default_k2 = solve_config1(dev, record, 2, cpu_k2, 1e-20, 1e-9, None,
+                                                ("spd_inverse_dd", "schur_pairs", "matmul_dd"))
         launches[3], default_k3 = solve_config1(
             dev, record, 3, cpu_k3, None, 1e-12, "optimal",
             ("schur_pairs", "matmul_xf", "spd_inverse_xf"))
         done("config 1")
         launches["dim24"] = solve_dim24(dev, record)
         done("dim 24")
-        launches["all"] = solve_all_kernels(dev, record, cpu_all, default_k3)
+        launches["all"], all_k3 = solve_all_kernels(dev, record, cpu_all, default_k3)
         done("config 1 all-kernels")
-        solve_sp16_ladder(dev, record, cpu_sp16)
+        sp16_rungs = solve_sp16_ladder(dev, record, cpu_sp16)
         done("sp16 ladder")
         solve_sp30(dev, record)
         done("sp30")
@@ -1597,6 +2015,8 @@ def main():
     profile_all_kernels(dev, record, record["config1_k3_routes"]["steady_it_per_s"]["all-kernels"])
     profile_k1(dev, record)
     done("profiles")
+    device_loop_phase(dev, record, all_k3, launches["all"], default_k2, sp16_rungs)
+    done("device loop")
 
     kernels = kernel_summary(rows, launches)
     record["total_s"] = time.time() - t_start

@@ -9,8 +9,10 @@ has a plain PyTorch version that runs on the CPU.
 
 Layers (bottom-up):
   ops/     k-limb arithmetic, linear algebra, the CUDA kernels
-  core/    block metadata, batching, problem packing, the IPM solver,
-           precision escalation (a ladder of limb counts, warm-started)
+  core/    block metadata, batching, problem packing, the IPM solver
+           (the phase driver, and the device-resident loop that reads the
+           device once per chunk of iterations), precision escalation (a
+           ladder of limb counts, warm-started)
   models/  problem front-end: polynomial bases, sample points, prepareabc,
            solvempmp (polynomial matrix programs)
   apps/    applications (the Delsarte LP bound, N-species sphere packing,
@@ -19,6 +21,7 @@ Layers (bottom-up):
   utils/   checkpoints of the iterate, the mpmath oracle IPM
 
 The entry points (``solverank1sdp``, ``solve_with_escalation``,
+``solve_on_device`` (on its problem's own device),
 ``solvempmp``, ``delsarte_lp_bound``, ``nsphere_packing_2point``,
 ``polymin_simplex``, ``solve_sdpb``, ``load_state``) run on the CUDA card
 unless given ``device="cpu"``.  Importing the package loads neither jax nor
@@ -31,8 +34,9 @@ from clrs_tpu_torch.apps.sdpb_export import write_sdpb_files
 from clrs_tpu_torch.apps.sdpb_import import read_sdpb_dir, solve_sdpb
 from clrs_tpu_torch.apps.sphere_packing import nsphere_packing_2point
 from clrs_tpu_torch.core.blockinfo import BlockInfo, get_block_info
+from clrs_tpu_torch.core.device_loop import solve_on_device
 from clrs_tpu_torch.core.escalate import solve_with_escalation
-from clrs_tpu_torch.core.solver import SolverConfig, solverank1sdp
+from clrs_tpu_torch.core.solver import SolverConfig, make_fused_step, solverank1sdp
 from clrs_tpu_torch.models.mpmp import solvempmp
 from clrs_tpu_torch.models.prepare import prepareabc
 from clrs_tpu_torch.ops.xfloat import XF
@@ -43,6 +47,8 @@ __all__ = [
     "BlockInfo",
     "SolverConfig",
     "solverank1sdp",
+    "make_fused_step",
+    "solve_on_device",
     "solve_with_escalation",
     "solvempmp",
     "get_block_info",

@@ -32,7 +32,9 @@ from typing import Optional, Sequence
 import torch
 
 from clrs_tpu_torch.core.blockinfo import BlockInfo
-from clrs_tpu_torch.core.solver import SolveResult, solverank1sdp
+from clrs_tpu_torch.core.device_loop import solve_on_device
+from clrs_tpu_torch.core.problem import pack_constraints
+from clrs_tpu_torch.core.solver import SolveResult, solve_device, solverank1sdp
 from clrs_tpu_torch.ops.xfloat import XF
 
 DEFAULT_LADDER = (2, 3, 4, 6, 10)
@@ -75,8 +77,8 @@ def solve_with_escalation(
     """Solve, escalating the limb count on numerical failure or stall.
 
     Runs the rungs ``k_ladder`` (default ``DEFAULT_LADDER``) then
-    ``host_ladder`` in order, each through ``solverank1sdp`` on ``device``
-    (the CUDA card unless told otherwise; without one it raises) with every
+    ``host_ladder`` in order, each through ``driver`` on ``device`` (the
+    CUDA card unless told otherwise; without one it raises) with every
     other solver keyword.  A rung that converges is returned.  One that
     ends on a numerical failure, an overflow or a stall hands its (best)
     iterate, re-rounded, to the next rung, with ``maxiterations`` less the
@@ -85,13 +87,16 @@ def solve_with_escalation(
     of gap and errors over its history) is returned.  The result's
     ``.rungs`` lists every rung's k, status, iterations and wall seconds.
 
-    driver: "phase" (the host driver, one call per phase).  The reference's
-    "device_loop" waits for the port's device loop (ROADMAP item 10).
+    driver: "phase" (the host driver, solverank1sdp, which reads the
+    device after every phase) or "device_loop" (core/device_loop.
+    solve_on_device on the rung's problem packed on ``device``, which reads
+    it once per ``chunk`` iterations; ``chunk`` and the route flags pass
+    through the keywords).  The device loop keeps the post-update state of
+    its best iteration, so a rung that stalls hands the next one another
+    warm start than the phase driver would.
     """
-    if driver != "phase":
-        raise NotImplementedError(
-            f"solve_with_escalation: driver {driver!r} needs the port's device loop "
-            "(ROADMAP item 10); use driver='phase'")
+    if driver not in ("phase", "device_loop"):
+        raise ValueError(f"solve_with_escalation: unknown driver {driver!r}")
     ladder = tuple(DEFAULT_LADDER if k_ladder is None else k_ladder) + tuple(host_ladder)
 
     state = ()
@@ -122,19 +127,25 @@ def solve_with_escalation(
         t_rung = time.time()
         if verbose and rung > 0:
             print(f"[escalate] restarting at k={k} limbs (warm start)")
-        res = solverank1sdp(
-            constraints,
-            b,
-            blockinfo,
-            C=C,
-            b0=b0,
-            precision_k=k,
-            initial_solutions=state,
-            verbose=verbose,
-            maxiterations=remaining,
-            device=device,
-            **kwargs,
-        )
+        if driver == "device_loop":
+            problem = pack_constraints(constraints, b, info=blockinfo, C=C, b0=b0, k=k,
+                                       device=solve_device(device, "solve_with_escalation"))
+            res = solve_on_device(problem, initial_solutions=state, verbose=verbose,
+                                  maxiterations=remaining, **kwargs)
+        else:
+            res = solverank1sdp(
+                constraints,
+                b,
+                blockinfo,
+                C=C,
+                b0=b0,
+                precision_k=k,
+                initial_solutions=state,
+                verbose=verbose,
+                maxiterations=remaining,
+                device=device,
+                **kwargs,
+            )
         rung_log.append(dict(
             path="device", k=k, iterations=res.iterations, status=res.status,
             wall=round(time.time() - t_rung, 2)))

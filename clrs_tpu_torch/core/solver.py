@@ -557,14 +557,19 @@ def make_ipm_phases(problem: SDPProblem, cfg: SolverConfig):
     info = problem.info
     k = problem.b.k
     dev = problem.device
-    Ktot = info.total_psd_size
     use_cuda = cfg.use_cuda_kernels(dev)
+    # the iteration's constants, made once on the problem's device (fills,
+    # no host-to-device copy)
+    Ktot = XF.from_float(float(info.total_psd_size), k=k, device=dev)
+    beta_inf = XF.from_float(cfg.beta_infeasible, k=k, device=dev)
+    beta_fea = XF.from_float(cfg.beta_feasible, k=k, device=dev)
+    one = XF.ones((), k=k, device=dev)
+    zero = XF.zeros((), k=k, device=dev)
 
     def phase_mu_R_Xinv(problem, state, pd_feas):
         x, y, X, Y = state
-        mu = xf_div(bd_dot(X, Y), XF.from_float(float(Ktot), k=k, device=dev))
-        zero = XF.zeros((), k=k, device=dev)
-        mu_p = xf_where(pd_feas, zero, xf_mul(mu, cfg.beta_infeasible))
+        mu = xf_div(bd_dot(X, Y), Ktot)
+        mu_p = xf_where(pd_feas, zero, xf_mul(mu, beta_inf))
         R = compute_residual_R(X, Y, mu_p, info)
         X_inv, ok_inv = compute_X_inv(X, info, cfg.use_lu_inverse,
                                       cfg.use_cuda_inverse)
@@ -583,12 +588,8 @@ def make_ipm_phases(problem: SDPProblem, cfg: SolverConfig):
     def phase_corrector_R(X, Y, dX, dY, mu, pd_feas):
         XdX = bd_map(xf_add, X, dX)
         YdY = bd_map(xf_add, Y, dY)
-        r = xf_div(bd_dot(XdX, YdY),
-                   xf_mul(mu, XF.from_float(float(Ktot), k=k, device=dev)))
-        one = XF.ones((), k=k, device=dev)
+        r = xf_div(bd_dot(XdX, YdY), xf_mul(mu, Ktot))
         beta = xf_where(r < one, xf_mul(r, r), r)
-        beta_inf = XF.from_float(cfg.beta_infeasible, k=k, device=dev)
-        beta_fea = XF.from_float(cfg.beta_feasible, k=k, device=dev)
         beta_c = xf_where(pd_feas, xf_min(xf_max(beta_fea, beta), one),
                           xf_max(beta_inf, beta))
         mu_c = xf_mul(beta_c, mu)
@@ -601,8 +602,11 @@ def make_ipm_phases(problem: SDPProblem, cfg: SolverConfig):
     def phase_update(problem, state, dx, dy, dX, dY, alpha_p, alpha_d, pd_feas,
                      P, p, d, mu, beta_c):
         x, y, X, Y = state
-        if pd_feas:
-            alpha_p = alpha_d = torch.minimum(alpha_p, alpha_d)
+        both = torch.minimum(alpha_p, alpha_d)
+        if not isinstance(pd_feas, torch.Tensor):  # the phase driver's bool
+            pd_feas = torch.full((), bool(pd_feas), device=dev)
+        alpha_p = torch.where(pd_feas, both, alpha_p)
+        alpha_d = torch.where(pd_feas, both, alpha_d)
         ap = XF.from_float(alpha_p, k=k)
         ad = XF.from_float(alpha_d, k=k)
         x_new = xf_add(x, xf_mul(dx, ap))
@@ -655,6 +659,44 @@ def _with_elemwise_cuda(fn):
             return fn(*args)
 
     return run
+
+
+def make_fused_step(problem: SDPProblem, cfg: SolverConfig):
+    """One whole IPM iteration as one call (solver.py:965-990 of the
+    reference, run eagerly): fn(state, pd_feas) -> (state', diag), with
+    diag["ok"] the conjunction of every factorization's flag.  pd_feas is a
+    0-dim bool tensor on the problem's device (or a Python bool, as the
+    phase driver passes it) and every flag stays on the device: nothing in
+    the step reads a value back to the host, so its launches queue without
+    waiting (core/device_loop.py runs it ``chunk`` times between reads)."""
+    phases = make_ipm_phases(problem, cfg)
+
+    def step(state, pd_feas):
+        x, y, X, Y = state
+        mu, R, X_inv, ok_inv = phases["mu_R_Xinv"](problem, state, pd_feas)
+        decomp = phases["decomp"](problem, X_inv, Y)
+        P, p, d = phases["residuals"](problem, x, X, y, decomp["A_Y"])
+        dx, dX, dy, dY = phases["direction"](problem, P, p, d, R, X_inv, Y, decomp)
+        beta_c, R2 = phases["corrector_R"](X, Y, dX, dY, mu, pd_feas)
+        dx, dX, dy, dY = phases["direction"](problem, P, p, d, R2, X_inv, Y, decomp)
+        alpha_p, ok_p, alpha_d, ok_d = phases["steplength"](X, dX, Y, dY)
+        new_state, diag = phases["update"](problem, state, dx, dy, dX, dY, alpha_p,
+                                           alpha_d, pd_feas, P, p, d, mu, beta_c)
+        diag["ok"] = ok_inv & decomp["ok"] & ok_p & ok_d
+        return new_state, diag
+
+    return step
+
+
+def solve_device(device, caller: str):
+    """The device to pack a problem on: ``device``, or the CUDA card when it
+    is None.  On a machine without a card, asking for it raises (caller
+    names the entry point) instead of running on the CPU."""
+    if device is None:
+        device = "cuda"
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}: no CUDA device; pass device='cpu' to solve on the CPU")
+    return device
 
 
 # ---------------------------------------------------------------------------
@@ -753,13 +795,9 @@ def solverank1sdp(
     if problem is None:
         from clrs_tpu_torch.core.problem import pack_constraints
 
-        if device is None:
-            device = "cuda"
-        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("solverank1sdp: no CUDA device; pass device='cpu' "
-                               "to solve on the CPU")
         problem = pack_constraints(constraints, b, info=blockinfo, C=C, b0=b0,
-                                   k=precision_k, device=device)
+                                   k=precision_k,
+                                   device=solve_device(device, "solverank1sdp"))
     elif device is not None:
         problem = problem.to(device)
     dev = problem.device

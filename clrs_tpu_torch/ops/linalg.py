@@ -218,8 +218,27 @@ def xf_sym(a: XF) -> XF:
 def xf_eigvalsh_approx(a: XF) -> torch.Tensor:
     """Eigenvalues of a symmetric XF matrix, in plain float64, on the
     matrix's own device (the step length consumes only lambda_min with a
-    gamma=0.7 slack, so float64 relative accuracy suffices)."""
+    gamma=0.7 slack, so float64 relative accuracy suffices).  A 1x1
+    matrix is its own eigenvalue, as the eigensolvers return it, without
+    their error check (which on a CUDA device reads a status back to the
+    host)."""
+    if a.shape[-1] == 1:
+        return a.to_float64()[..., 0]
     return torch.linalg.eigvalsh(a.to_float64())
+
+
+_SCHEDULES = {}
+
+
+def _device_schedule(n: int, device):
+    """_jacobi_schedule(n) as two int64 tensors on ``device``, copied there
+    once per (n, device) and kept: a copy from pageable host memory in
+    every round would block the host."""
+    key = (n, torch.device(device))
+    if key not in _SCHEDULES:
+        top, bot = _jacobi_schedule(n)
+        _SCHEDULES[key] = (torch.from_numpy(top).to(device), torch.from_numpy(bot).to(device))
+    return _SCHEDULES[key]
 
 
 def _jacobi_schedule(n: int):
@@ -253,14 +272,14 @@ def jacobi_min_eig(a: torch.Tensor, sweeps: int = 6) -> torch.Tensor:
         pad_val = torch.amax(torch.diagonal(a, dim1=-2, dim2=-1), dim=-1)
         a = torch.nn.functional.pad(a, (0, 1, 0, 1))
         a[..., n, n] = pad_val
-    top_np, bot_np = _jacobi_schedule(npad)
-    rounds = top_np.shape[0]
+    top, bot = _device_schedule(npad, dev)
+    rounds = top.shape[0]
     eye = torch.eye(npad, dtype=dtype, device=dev)
     tiny = torch.finfo(dtype).tiny
     for step in range(sweeps * rounds):
         r = step % rounds
-        p = torch.from_numpy(top_np[r]).to(dev)
-        q = torch.from_numpy(bot_np[r]).to(dev)
+        p = top[r]
+        q = bot[r]
         app = a[..., p, p]
         aqq = a[..., q, q]
         apq = a[..., p, q]

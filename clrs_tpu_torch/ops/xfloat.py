@@ -194,7 +194,7 @@ class XF:
     @staticmethod
     def ones(shape=(), k: int = 2, *, device, dtype=F64) -> "XF":
         limbs = torch.zeros((k,) + tuple(shape), dtype=dtype, device=device)
-        limbs[0] = 1.0
+        limbs[0].fill_(1.0)  # a fill; item assignment of a number copies from the host
         return XF(limbs)
 
     @staticmethod
@@ -206,17 +206,21 @@ class XF:
     @staticmethod
     def from_float(x, k: int = 2, *, device=None, dtype=F64, shape=()) -> "XF":
         """Lift a float/tensor (already exactly representable) to XF.  A
-        tensor keeps its own device; a Python scalar needs ``device``."""
-        if isinstance(x, torch.Tensor):
-            x = x.to(dtype)
-            device = x.device
-        else:
+        tensor keeps its own device; a Python scalar needs ``device`` and
+        is written there by a fill (no host-to-device copy, which would
+        block the host on a CUDA device)."""
+        if not isinstance(x, torch.Tensor):
             if device is None:
                 raise ValueError("from_float of a Python scalar needs device=")
+            if isinstance(x, (int, float, np.number)):
+                limbs = torch.zeros((k,) + tuple(shape), dtype=dtype, device=device)
+                limbs[0].fill_(float(x))
+                return XF(limbs)
             x = torch.tensor(x, dtype=dtype, device=device)
+        x = x.to(dtype)
         if shape:
             x = torch.broadcast_to(x, tuple(shape))
-        limbs = torch.zeros((k,) + tuple(x.shape), dtype=dtype, device=device)
+        limbs = torch.zeros((k,) + tuple(x.shape), dtype=dtype, device=x.device)
         limbs[0] = x
         return XF(limbs)
 

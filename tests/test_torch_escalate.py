@@ -106,7 +106,7 @@ class ScriptedSolver:
         i = len(self.calls)
         warm = initial_solutions
         self.calls.append(dict(
-            k=precision_k, maxiterations=maxiterations, warm=len(warm),
+            k=precision_k, maxiterations=maxiterations, warm=len(warm), chunk=kwargs.get("chunk"),
             warm_limbs=warm[0].limbs.shape[0] if warm else None,
             warm_state=[np.asarray(leaf.limbs) for leaf in state_leaves(warm)] if warm
             else None, device=kwargs.get("device")))
@@ -157,16 +157,53 @@ def test_ladder_control_flow_matches_reference(name, monkeypatch):
 
 def test_host_ladder_rungs_append_and_device_loop_raises(monkeypatch):
     """A reference-style call k_ladder=(2,), host_ladder=(6,) runs (2, 6)
-    through the one solver; the device-loop driver is not ported."""
-    solver = ScriptedSolver([("stalled", 10, 1e-5), ("optimal", 8, 1e-16)], t_make)
+    through the one solver.  driver="device_loop" runs the same scripted
+    ladder through solve_on_device, each rung packed at its k on the
+    device (the reference's escalate.py:209-222), with the same calls and
+    rungs as the phase driver; an unknown driver raises."""
+    script = [("stalled", 10, 1e-5), ("stalled", 7, 1e-9), ("optimal", 8, 1e-16)]
+    solver = ScriptedSolver(script[:1] + script[2:], t_make)
     monkeypatch.setattr(t_escalate, "solverank1sdp", solver)
     res = t_escalate.solve_with_escalation(None, [1.0], None, k_ladder=(2,), host_ladder=(6,),
                                            verbose=False, device="cpu")
     assert [c["k"] for c in solver.calls] == [2, 6] and solver.calls[1]["warm_limbs"] == 6
     assert res.call == 1 and [r["k"] for r in res.rungs] == [2, 6]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        t_escalate.solve_with_escalation(None, [1.0], None, driver="device_loop",
-                                         device="cpu")
+
+    phase = ScriptedSolver(script, t_make)
+    monkeypatch.setattr(t_escalate, "solverank1sdp", phase)
+    want = t_escalate.solve_with_escalation(None, [1.0], None, k_ladder=(2, 3, 4),
+                                            maxiterations=60, verbose=False, device="cpu")
+    loop, packed = ScriptedSolver(script, t_make), []
+
+    def pack(constraints, b, info, C, b0, k, device):
+        packed.append((k, device))
+        return types.SimpleNamespace(k=k)
+
+    def solve_on_device(problem, initial_solutions, maxiterations, **kwargs):
+        return loop(None, None, None, precision_k=problem.k,
+                    initial_solutions=initial_solutions, maxiterations=maxiterations,
+                    device="cpu", **kwargs)
+
+    monkeypatch.setattr(t_escalate, "solverank1sdp", None)
+    monkeypatch.setattr(t_escalate, "pack_constraints", pack)
+    monkeypatch.setattr(t_escalate, "solve_on_device", solve_on_device)
+    got = t_escalate.solve_with_escalation(None, [1.0], None, k_ladder=(2, 3, 4),
+                                           maxiterations=60, verbose=False, device="cpu",
+                                           driver="device_loop", chunk=5)
+    assert packed == [(2, "cpu"), (3, "cpu"), (4, "cpu")]
+    assert [c["chunk"] for c in loop.calls] == [5, 5, 5]
+    for p, d in zip(phase.calls, loop.calls):
+        for key in ("k", "maxiterations", "warm", "warm_limbs"):
+            assert p[key] == d[key], (key, p[key], d[key])
+        if p["warm_state"] is not None:
+            for a, b in zip(p["warm_state"], d["warm_state"]):
+                assert np.array_equal(a.view(np.uint64), b.view(np.uint64))
+    strip = ("path", "k", "iterations", "status")
+    assert [{key: r[key] for key in strip} for r in got.rungs] == \
+        [{key: r[key] for key in strip} for r in want.rungs]
+    assert got.call == want.call == 2
+    with pytest.raises(ValueError, match="unknown driver"):
+        t_escalate.solve_with_escalation(None, [1.0], None, driver="lax", device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -72,7 +72,8 @@ def assert_history_close(ref, got, rel):
             assert abs(a - b) <= rel * max(abs(a), 1e-300), (rj["iter"], key, a, b)
 
 
-NEW_MODULES = ("clrs_tpu_torch.core.escalate", "clrs_tpu_torch.utils.checkpoint",
+NEW_MODULES = ("clrs_tpu_torch.core.escalate", "clrs_tpu_torch.core.device_loop",
+               "clrs_tpu_torch.utils.checkpoint",
                "clrs_tpu_torch.models.mpmp", "clrs_tpu_torch.apps.sphere_packing",
                "clrs_tpu_torch.apps.polymin", "clrs_tpu_torch.apps.sdpb_export",
                "clrs_tpu_torch.apps.sdpb_import", "clrs_tpu_torch.utils.oracle")
@@ -175,6 +176,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         lambda **kw: solverank1sdp(cons, b, info, **quick, **kw),
         lambda **kw: t_bound(N, 1, **quick, **kw),
         lambda **kw: solve_with_escalation(cons, b, info, k_ladder=(2,), **quick, **kw),
+        lambda **kw: solve_with_escalation(cons, b, info, k_ladder=(2,), driver="device_loop",
+                                           **quick, **kw),
         lambda **kw: solvempmp([[poly_matrix([[-x]]), poly_matrix([[one]])]],
                                [[one, x * (one - x)]], [[one, x]], [[0, "0.5", 1]], [2],
                                [-1.0], **quick, **kw),
