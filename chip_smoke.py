@@ -6,8 +6,9 @@ Phases (any failure raises, and the script exits non-zero):
   1. requires a CUDA device; prints the card's name and power limit, and
      starts the CPU reference solves of phases 4, 5 and 7, the plain
      versions of phase 3's K5 and K7 tree rows and config-1 rows at k = 6
-     and 10 and of phase 12's K5 and K7 rows, and phase 9's CPU run in
-     worker processes (they need no card);
+     and 10 and of phase 12's K5 and K7 rows, phase 9's CPU run, and
+     phase 14's plain versions, and in a pool of its own sp86's packing,
+     then its CPU run and LU, in worker processes (they need no card);
   2. builds the hand-written kernels (clrs_tpu_torch/csrc, one nvcc per
      source, all at once) and prints the build seconds and ptxas's
      registers and spills of the k-limb kernels at k=3, 10 and 12, of the
@@ -44,12 +45,13 @@ Phases (any failure raises, and the script exits non-zero):
      follow the same solve on the CPU, routed through the kernels' plain
      versions (same status, iterations within 2, p_obj/d_obj/gap within
      1e-10 relative until an error reaches the double-double floor 1e-20);
-  5. solves the same bound at k=3 on the card, counters reset: K2, K4 and
-     K5 must have launched (K1 and K3 are k=2 kernels and must not), the
-     status must be `optimal` with the bound 240 to 1e-12, and the run must
-     follow the CPU's on the same route as in phase 4, over the whole
-     history (the k=3 noise floor, ~1e-45, lies far below the 1e-30
-     thresholds);
+  5. solves the same bound at k=3 on the card for its first 8 iterations
+     (DEFAULT_K3_ITERATIONS; the default route takes ~3.7 s an iteration
+     there), counters reset: K2, K4 and K5 must have launched (K1 and K3
+     are k=2 kernels and must not), and the run must follow the CPU's on
+     the same route as in phase 4 over all its rows (the k=3 noise floor,
+     ~1e-45, lies far below the 1e-30 thresholds); the CPU's whole run
+     must end `optimal` with the bound 240 to 1e-12;
   6. solves the dimension-24 bound (2d=20, k=2) on the card, counters
      reset: K1, K2 and K3 must have launched, and the bound is 196560 to
      1e-3;
@@ -59,8 +61,8 @@ Phases (any failure raises, and the script exits non-zero):
      and K9 must
      not; the run must follow the CPU port on the same route as in phase 5
      and end `optimal` with the bound 240 to 1e-12 within 2 iterations of
-     phase 5; prints both routes' steady it/s and ms/iter by phase side by
-     side;
+     the default route's whole run (phase 5's CPU run); prints both routes'
+     steady it/s and ms/iter by phase side by side;
   8. profiles iterations 3-6 of phase 7's route with torch.profiler: the
      device's busy share, the device time per launch of K8, K5, K7, K4 and
      K2, launches per iteration by kernel name with copies apart and the
@@ -116,14 +118,47 @@ Phases (any failure raises, and the script exits non-zero):
      (e) sp16 through solve_with_escalation(driver="device_loop") on the
      all-kernels route under the full contract, the rungs (6, 10) from
      phase 9's k=4 rung's result (saved with utils/checkpoint and loaded
-     at k=6), their kernels and warm starts checked as in phase 9 (the k=10
-     rung's is the k=6 rung's result re-rounded): it must end `optimal` at
+     at k=6), so that the device loop's k=6 rung stalls and hands its
+     post-update best iterate on, re-rounded, to k=10; its kernels and
+     warm starts checked as in phase 9: it must end `optimal` at
      0.8150097064427971 to 1e-10; prints each rung beside phase 9's;
- 14. prints the kernels' JSON line, then the result line
+ 14. checks K5's panel route (ops/cuda_xf.spd_inverse_panels: the SPD
+     inverse above the single launch's 256 rows at k >= 3, a launch of
+     csrc/spd_panel_xf.cu's clrs_spd_panel_xf per panel and K4 and K8
+     launches between them): (a) bitwise against its plain version, which
+     ran in the CPU workers, on sp86's S_j (1x261x261) at k = 3, 6, 10 and
+     Q (1x262x262) at k=3, and on 1x257 and 1x512 at k=3, each with its
+     one-call and back-to-back times, its bound (the SPD inverse's own
+     work: A and A^-1 once, ~n^3/2 multiply-adds) and its launches per call
+     (those of the panel kernel, K4 and K8 only), limb 0 once against a
+     float64 LAPACK inverse, one call under torch.profiler whose op and
+     kernel names must show this repo's three kernels and no library
+     product or factorization (no cuBLAS, cuSOLVER, torch.matmul or
+     torch.linalg); 1x1024 at k=3 timed against its bound and
+     held to LAPACK only (its plain version takes ~8 min of a CPU); at n =
+     256 the single launch's time beside the panel route's; (b) sp86 (the two-species packing at 2d =
+     86, built at 53*3 + 150 bits and its packing's mpmath
+     preconditioning done once in a worker of its own) at k=3 for 3
+     iterations on the all-kernels route (the default route's eager LU,
+     which a Schur Cholesky's failure at the first iteration brings, takes
+     ~2.5 min an iteration, more than the script's time holds), counters
+     reset: its kernels, the panel route's among them, and no other must
+     launch, and the first iteration must follow a CPU worker on the same
+     route to 1e-10 relative; prints every iteration's row,
+     launches per iteration by kernel and ms/iter by phase; (c)
+     xf_inverse_lu of sp86's largest S_j at the cold start
+     (261 rows, k=3) on the card against the CPU port's, to the ulp of the
+     last limb;
+ 15. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} as the last line.
-Phase 8's profiles run after phases 9-12, and phase 13 after them: with
-phase 13's profiled chunk before it, phase 8's window on the card showed
-942 of K8's 943 launches per iteration.
+Phase 10 runs in a card process of its own (a spawned worker) beside
+phases 4-6, 11 and 9, in that order, where the card's compute mode is
+Default (else after them, in this process); phase 7 follows.  Each solve
+leaves the card idle ~95 % of its time, so the two share it, and those
+phases' times are taken beside phase 10's; phases 3, 7, 8 and 12-14 run
+alone on the card.  Phase 8's profiles run after phases 9-12, and phase 13
+after them: with phase 13's profiled chunk before it, phase 8's window on
+the card showed 942 of K8's 943 launches per iteration.
 The full record also goes to chiprun_out/chip_smoke.json.
 """
 
@@ -159,6 +194,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                     "clrs_tpu/ops/pallas_xf.py:1157"),
     "spd_inverse_dd_wide": ("clrs_tpu_torch/csrc/spd_inverse_dd_wide.cu",
                             "clrs_tpu/ops/pallas_dd.py:337"),
+    "spd_panel_xf (K5 above 256 rows)": ("clrs_tpu_torch/csrc/spd_panel_xf.cu",
+                                         "clrs_tpu/ops/pallas_xf.py:730"),
 }
 # the solve whose launches each kernel's JSON entry reports, and the limb
 # count of its first main-path shape there; K9 is an entry point that no
@@ -166,7 +203,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 KERNEL_PATH = {"spd_inverse_dd": (2, 2), "schur_pairs_dd": (2, 2), "matmul_dd": (2, 2),
                "schur_pairs_xf": (3, 3), "matmul_xf (K4, K6)": (3, 3),
                "spd_inverse_xf": (3, 3), "steplen_xf": ("all", 3),
-               "elemwise_xf": ("all", 3), "spd_inverse_dd_wide": (2, 2)}
+               "elemwise_xf": ("all", 3), "spd_inverse_dd_wide": (2, 2),
+               "spd_panel_xf (K5 above 256 rows)": ("sp86", 3)}
 STEPLEN_LADDER = (2, 3, 4, 6, 10)
 ALL_KERNELS_ROUTE = dict(use_cuda_inverse=True, use_cuda_steplength=True,
                          use_cuda_elemwise=True)
@@ -178,8 +216,14 @@ FP64_INSTR_PER_S = FP64_PER_S / 2
 SOLVE = dict(omega_p=100.0, omega_d=100.0, verbose=False)
 
 
+LOG_LINES = None  # a list while phase 10 keeps its lines for the main process
+
+
 def log(*a):
-    print(*a, flush=True)
+    if LOG_LINES is None:
+        print(*a, flush=True)
+    else:
+        LOG_LINES.append(" ".join(map(str, a)))
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +489,7 @@ SP_STEPLEN_BLOCKS = {"config1": ((6, 1), (5, 1)),
 # K5 and K7 where the halving tree changes shape (csrc/chol_xf.cuh)
 TREE_SIZES = (1, 2, 31, 32, 33, 64, 65)
 TREE_WORKERS = 4  # CPU processes for the tree rows' plain versions
+WORKER_NICE = 10  # os.nice of every worker process
 # phase 3's K5 and K7 rows at config-1 shapes at these k: their plain
 # versions take ~110 s of small launches on the card (41 s for K7's
 # iteration launch at k=10), a few seconds each in the CPU workers
@@ -578,8 +623,8 @@ def make_case(rows):
             vk, vp = vk[ok], vp[ok]
         err = float(torch.max(torch.abs(vk - vp))) if vk.numel() else 0.0
         assert bits_equal(vk, vp), f"{name} k={k} {label}: not bitwise equal ({err})"
-        ms = median_ms(lambda: kernel(*args), reps)
-        ms_many = many_ms(lambda: kernel(*args), max(5, min(200, int(20.0 / max(ms, 0.05)))))
+        ms = median_ms(lambda: kernel(*args), reps, warm=False)  # the call compared warmed it
+        ms_many = many_ms(lambda: kernel(*args), max(2, min(200, int(20.0 / max(ms, 0.05)))))
         if plain_ms is None:
             plain_ms = (median_ms(lambda: plain(*args), plain_reps, warm=False)
                         if plain_reps else start.elapsed_time(end))
@@ -949,7 +994,8 @@ def counters():
             "matmul_dd": cuda_xf.dd_matmul, "matmul_xf": cuda_xf.matmul_xf,
             "spd_inverse_xf": cuda_xf.spd_inverse_xf,
             "steplen_xf": cuda_xf.steplen_sandwich_xf, "elemwise_xf": cuda_xf.elemwise_xf,
-            "spd_inverse_dd_wide": cuda_dd.dd_spd_inverse_wide}
+            "spd_inverse_dd_wide": cuda_dd.dd_spd_inverse_wide,
+            "spd_panel_xf": cuda_xf.spd_panel_xf}
 
 
 def reset_counters():
@@ -964,6 +1010,12 @@ def read_counters():
 def per_phase_ms(res):
     n = max(res.iterations - 2, 1)  # timings exclude the first 2 iterations
     return {k: 1e3 * v / n for k, v in sorted(res.timings.items())}
+
+
+# phase 5's iterations on the card: the default route at k=3 takes ~3.7 s an
+# iteration there (eager k-limb arithmetic), so its 39 would take more of
+# the script's time than it can give; iterations 3-8 give its time by phase
+DEFAULT_K3_ITERATIONS = 8
 
 
 def solve(n, d, k, device, route):
@@ -984,11 +1036,15 @@ def cpu_solve(n, d, k, route=None):
 
 
 def solve_config1(dev, record, k, cpu_future, floor, bound_tol, expect_status, kernels,
-                  route=None, tag=None):
-    """Delsarte dim 8, 2d=10 at k limbs on the card, held against the CPU."""
+                  route=None, tag=None, iterations=None):
+    """Delsarte dim 8, 2d=10 at k limbs on the card, held against the CPU.
+    iterations: the card runs only the solve's first iterations, held row
+    for row against the CPU's whole run, whose end (status and bound) then
+    stands for the route's; None runs the whole solve on the card."""
     reset_counters()
     t0 = time.time()
-    bound_, res = solve(8, 5, k, dev, route or {})
+    bound_, res = solve(8, 5, k, dev, dict(route or {}, **(
+        {"maxiterations": iterations} if iterations else {})))
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counters()
@@ -1037,33 +1093,41 @@ def solve_config1(dev, record, k, cpu_future, floor, bound_tol, expect_status, k
         assert launches[name] > 0, f"{name} never launched during the {tag} solve"
     for name in set(launches) - set(kernels):
         assert launches[name] == 0, f"{name} launched during the {tag} solve"
+    if iterations:
+        assert res.iterations == len(res.history) == iterations, res.iterations
+        bound_, status = cpu["bound"], cpu["status"]  # the end, on the CPU only
+    else:
+        status = res.status
+        assert res.status == cpu["status"], (res.status, cpu["status"])
+        assert abs(res.iterations - cpu["iterations"]) <= 2, (res.iterations, cpu["iterations"])
     assert abs(bound_ - 240.0) < bound_tol, f"{tag} bound {bound_!r}"
     if expect_status is not None:
-        assert res.status == expect_status, f"{tag} status {res.status}"
-    assert res.status == cpu["status"], (res.status, cpu["status"])
-    assert abs(res.iterations - cpu["iterations"]) <= 2, (res.iterations, cpu["iterations"])
+        assert status == expect_status, f"{tag} status {status}"
     assert floor_at >= 1, "no iteration before the error floor to compare"
     assert pre_floor <= 1e-10, f"gpu and cpu histories differ by {pre_floor!r}"
     return launches, res
 
 
-def solve_all_kernels(dev, record, cpu_future, default):
+def solve_all_kernels(dev, record, cpu_future, default, default_cpu):
     """Phase 7: config 1 at k=3 on the all-kernels route, against the CPU
-    on the same route and against phase 5's default route."""
+    on the same route and against the default route: phase 5's iterations
+    on the card (default) for the time by phase, the CPU's whole run
+    (default_cpu, a future) for the status and the iterations."""
     launches, res = solve_config1(
         dev, record, 3, cpu_future, None, 1e-12, "optimal",
         ("schur_pairs", "matmul_xf", "spd_inverse_xf", "steplen_xf", "elemwise_xf"),
         route=ALL_KERNELS_ROUTE, tag="config1 k=3 all-kernels")
     # X's and Y's 6x6 and 5x5 blocks, all in one launch every iteration
     assert launches["steplen_xf"] == res.iterations, launches["steplen_xf"]
-    assert abs(res.iterations - default.iterations) <= 2, (res.iterations, default.iterations)
-    assert default.status == "optimal"
+    whole = default_cpu.get()
+    assert abs(res.iterations - whole["iterations"]) <= 2, (res.iterations, whole["iterations"])
+    assert whole["status"] == "optimal", whole["status"]
     steady = {}
     for name, r in (("default", default), ("all-kernels", res)):
         steady[name] = (r.iterations - 2) / max(sum(r.timings.values()), 1e-12)
     log(f"config1 k=3 routes, steady it/s: default {steady['default']:.4f}, "
-        f"all-kernels {steady['all-kernels']:.4f}; iterations {default.iterations} / "
-        f"{res.iterations}")
+        f"all-kernels {steady['all-kernels']:.4f}; iterations {whole['iterations']} (the "
+        f"CPU's whole run; {default.iterations} on the card) / {res.iterations}")
     a, b = per_phase_ms(default), per_phase_ms(res)
     log("config1 k=3 routes, ms/iter by phase (default / all-kernels): " + ", ".join(
         f"{p}={a.get(p, 0.0):.2f}/{b.get(p, 0.0):.2f}" for p in sorted(set(a) | set(b))))
@@ -1532,6 +1596,22 @@ def solve_sp30(dev, record):
     return rungs
 
 
+def sp30_process():
+    """Phase 10 with its log lines kept: run in a card process of its own
+    beside phases 4-6, 9 and 11 where the card takes more than one process
+    (each solve leaves the card idle ~95 % of its time, waiting on its
+    host), else in the main process.  Returns (its record, its lines)."""
+    global LOG_LINES
+    LOG_LINES, record = [], {}
+    try:
+        solve_sp30(torch.device("cuda", 0), record)
+        return record["sp30"], LOG_LINES
+    except Exception as e:
+        raise RuntimeError("phase 10 (sp30) failed:\n" + "\n".join(LOG_LINES)) from e
+    finally:
+        LOG_LINES = None
+
+
 def solve_config4(dev, record):
     """Phase 11: BASELINE config 4, polymin_simplex on the 2-simplex
     quadratic of tests/test_polymin.py (minimum -3/4) at k=2, counters
@@ -1893,14 +1973,316 @@ def device_loop_phase(dev, record, phase7, phase7_launches, phase4, sp16_rungs):
     timed("e")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: K5's panel route and sp86
+# ---------------------------------------------------------------------------
+
+# sp86: the two-species packing at 2d = 86, the smallest degree of the
+# example whose S_j (261 rows) and Q (262) both pass the single launch's
+# 256 rows at k >= 3; built at the precision k=3 needs, in every process
+SP86_D = 43
+SP86_PREC = 53 * 3 + 150
+# iterations on the card, on the all-kernels route only, cut from 10 to
+# fit the script's time: at k=3 a Schur Cholesky of sp86 fails at the
+# first iteration and the solver takes S_j and Q by LU from then on, ~4 s
+# an iteration on the all-kernels route (through K8) and ~2.5 min on the
+# default route (eager arithmetic; PERF.md section 6), which the
+# script's 1200 s cannot hold; and the first iteration held against a
+# CPU worker on the same route (~2 min an iteration there): from iteration
+# 2 the card and the CPU part by ~0.05, by their float64 step lengths
+# alone (the Jacobi bound's float64 products differ in their last bits
+# between the two; given the card's step lengths the CPU follows the card
+# bit for bit for 3 iterations: scripts/sp86_step_witness.py)
+SP86_ITERATIONS = 3
+SP86_PARITY = 1
+SP86_WORKERS = 2  # a pool of its own: the packing, then the CPU run and the LU at once
+# the panel route's rows (label, k, n): sp86's S_j and Q at k=3, its S_j at
+# k = 6 and 10, then 257 and 512 rows at k=3; their plain versions run in
+# the CPU workers (one thread each on the H100 machine: 12 s at 261 rows
+# and k=3, 72 s at 512, ~105 s at k=6 and ~435 s at k=10; Q at k = 6, 10
+# and 1024 rows, ~500 s, would not fit the script's time, so 1024 rows
+# are timed against their bound and held to float64 LAPACK only)
+PANEL_SHAPES = (("S_j 1x261x261", 3, 261), ("Q 1x262x262", 3, 262), ("S_j 1x261x261", 6, 261),
+                ("S_j 1x261x261", 10, 261), ("1x257x257", 3, 257), ("1x512x512", 3, 512))
+PANEL_UNCHECKED = (("1x1024x1024", 3, 1024),)
+PANEL_NAME = "spd_panel_xf (K5 above 256 rows)"
+SP86_KERNELS = ("schur_pairs", "matmul_xf", "spd_inverse_xf", "steplen_xf", "elemwise_xf",
+                "spd_panel_xf")
+
+
+def sp86_problem():
+    """(constraints, b, blockinfo) of sp86 at SP86_PREC bits; mpmath's
+    precision is left there, for the packing (the caller restores it)."""
+    from clrs_tpu_torch import nsphere_packing_2point
+
+    mpmath.mp.prec = SP86_PREC
+    r = [mpmath.mpf(1), mpmath.sqrt(mpmath.mpf(2)) - 1]
+    return nsphere_packing_2point(3, SP86_D, r, 2, prec=SP86_PREC, build_only=True)
+
+
+def sp86_pack_data():
+    """sp86's front-end and the mpmath preconditioning of its packing
+    (core/problem.prepare_pack_data: QRs of its bases and of B, minutes of
+    one core), done once in a worker for every process that packs it."""
+    from clrs_tpu_torch.core.problem import prepare_pack_data
+
+    torch.set_num_threads(1)
+    t0 = time.time()
+    cons, b, info = sp86_problem()
+    t1 = time.time()
+    data = prepare_pack_data(cons, b, info=info)
+    return dict(data=data, front_end_s=t1 - t0, prepare_s=time.time() - t1)
+
+
+def sp86_packed(data, device):
+    """sp86 packed at k=3 on device from sp86_pack_data's data (mpmath's
+    precision raised for the rounding, then restored)."""
+    from clrs_tpu_torch.core.problem import _pack_from_data
+
+    old = mpmath.mp.prec
+    mpmath.mp.prec = SP86_PREC
+    try:
+        return _pack_from_data(data, 3, device)
+    finally:
+        mpmath.mp.prec = old
+
+
+def cpu_sp86(data):
+    """sp86's first SP86_PARITY iterations at k=3 on the CPU, on the
+    all-kernels route's plain versions; run in a worker process."""
+    from clrs_tpu_torch import solverank1sdp
+
+    torch.set_num_threads(2)
+    t0 = time.time()
+    res = solverank1sdp(problem=sp86_packed(data, "cpu"), verbose=False, use_cuda_matmul=True,
+                        **ALL_KERNELS_ROUTE, **dict(LADDER_SOLVE, maxiterations=SP86_PARITY))
+    return dict(history=res.history, wall_s=time.time() - t0)
+
+
+def cpu_sp86_lu(data):
+    """sp86's largest S_j (261 rows) at the cold start, k=3, and its
+    xf_inverse_lu on the CPU port; run in a worker process."""
+    from clrs_tpu_torch.core.solver import (SolverConfig, compute_decomposition,
+                                            compute_X_inv, initial_state)
+    from clrs_tpu_torch.ops.linalg import xf_inverse_lu
+
+    torch.set_num_threads(2)
+    problem = sp86_packed(data, "cpu")
+    info = problem.info
+    _, _, X, Y = initial_state(problem, SolverConfig(**LADDER_SOLVE))
+    X_inv, _ = compute_X_inv(X, info, False)
+    j = max(range(info.J), key=lambda i: info.dim_S[i])
+    S = compute_decomposition(problem, X_inv, Y, False)["S_mat"][j]
+    t0 = time.time()
+    inv, ok = xf_inverse_lu(S)
+    return dict(S=S.limbs.numpy(), inv=inv.limbs.numpy(), ok=bool(ok), s=time.time() - t0)
+
+
+def panel_inputs(k, n):
+    """A panel row's input, on the CPU, the same in every process: one SPD
+    block (1, k, n, n) of condition 1e6."""
+    return spd_batch(np.random.default_rng([4000, k, n]), 1, n, k, 1e6, "cpu")
+
+
+def panel_plain(k, n):
+    """The panel route's plain version on panel_inputs(k, n), in a CPU
+    worker: outputs and seconds."""
+    torch.set_num_threads(1)
+    from clrs_tpu_torch.ops import cuda_xf
+
+    a = panel_inputs(k, n)
+    t0 = time.time()
+    out = cuda_xf.spd_inverse_xf_torch(a)
+    return dict(out=tuple(x.numpy() for x in out), s=time.time() - t0)
+
+
+def spd_inverse_function_work(k, B, n):
+    """The SPD inverse as a function, whatever route computes it: A read
+    and A^-1 written once (k limbs each, a flag a block), and the least
+    arithmetic it needs: the multiply-adds of the Cholesky ((n^3 - n) / 6),
+    of W = L^-1 ((n^3 - n) / 6) and of the symmetric W^T W (n (n + 1)
+    (n + 2) / 6), n square roots, and the n^2 divisions by L's diagonal
+    (n (n - 1) / 2 in the Cholesky, n (n + 1) / 2 in L^-1)."""
+    c = op_counts(k)
+    macs = (n ** 3 - n) // 3 + n * (n + 1) * (n + 2) // 6
+    ops = macs * (c["mul"] + c["add"]) + n * n * c["div"] + n * c["sqrt"]
+    return 8 * B * (2 * k * n * n + 1), B * ops
+
+
+def check_panel_route(dev, record, rows, plain):
+    """Phase 14 (a): the panel route bitwise against its plain version
+    (computed in the CPU workers) at PANEL_SHAPES, its launches per call,
+    one check against float64 LAPACK, one call under torch.profiler (no
+    library product or factorization on its path), and the single launch
+    beside the panel route at n = 256, where both take the matrix."""
+    from clrs_tpu_torch.ops import cuda_dd, cuda_xf
+
+    case = make_case(rows)
+    out = record["panel_route"] = dict(panel=cuda_xf.SPD_PANEL, rows={})
+    for label, k, n in PANEL_SHAPES:
+        a = panel_inputs(k, n).to(dev)
+        res = plain[(k, n)]
+        want = tuple(torch.from_numpy(x).to(dev) for x in res["out"])
+        reset_counters()
+        cuda_xf.spd_inverse_xf(a)
+        torch.cuda.synchronize()
+        per_call = {name: v for name, v in read_counters().items() if v}
+        row = case(PANEL_NAME, k, label, cuda_xf.spd_inverse_xf, lambda *_: want, (a,),
+                   spd_inverse_function_work(k, 1, n), 3, 0, label.startswith("S_j"),
+                   plain_ms=1e3 * res["s"])
+        row.update(plain_device="cpu", launches_per_call=per_call)
+        assert per_call.get("spd_panel_xf") == -(-n // cuda_xf.SPD_PANEL), per_call
+        assert set(per_call) == {"spd_panel_xf", "matmul_xf", "elemwise_xf"}, per_call
+        log(f"panel route k={k} {label}: launches per call {per_call}")
+        out["rows"][label + f" k={k}"] = row
+        if (k, n) == (3, 261):
+            got = want[0][0, 0].cpu().numpy()
+            lapack = np.linalg.inv(a[0, 0].cpu().numpy())
+            rel = float(np.max(np.abs(got - lapack)) / np.max(np.abs(lapack)))
+            log(f"panel route k=3 {label}: limb 0 against float64 LAPACK {rel:.3e} relative")
+            assert rel < 1e-8, rel
+            out["lapack_rel_diff"] = rel
+    # the panel route's call path in a profile: this repo's kernels, fills
+    # and copies, and no library product or factorization
+    from torch.profiler import ProfilerActivity, profile
+
+    a = panel_inputs(3, 261).to(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cuda_xf.spd_inverse_xf(a)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    library = [name for name in names if re.search(
+        r"gemm|cublas|cusolver|magma|xmma|potrf|trsm|getrf|aten::(mm|bmm|matmul|addmm|baddbmm|"
+        r"linalg|cholesky|triangular|inverse)", name, re.IGNORECASE)]
+    ours = sorted({kernel for kernel in ("spd_panel_xf_kernel", "matmul_xf_kernel",
+                                         "elemwise_xf_kernel")
+                   if any(kernel in name for name in names)})
+    log(f"panel route k=3 S_j 1x261x261 profile: {len(names)} op and kernel names; this "
+        f"repo's kernels {ours}; library products or factorizations {library}")
+    assert not library and len(ours) == 3, (library, ours)
+    out["profile_names"] = names
+    for label, k, n in PANEL_UNCHECKED:
+        a = panel_inputs(k, n).to(dev)
+        reset_counters()
+        inv, ok = cuda_xf.spd_inverse_xf(a)
+        torch.cuda.synchronize()
+        per_call = {name: v for name, v in read_counters().items() if v}
+        lapack = np.linalg.inv(a[0, 0].cpu().numpy())
+        rel = float(np.max(np.abs(inv[0, 0].cpu().numpy() - lapack)) / np.max(np.abs(lapack)))
+        ms = median_ms(lambda: cuda_xf.spd_inverse_xf(a), 3)
+        ms_many = many_ms(lambda: cuda_xf.spd_inverse_xf(a), 5)
+        bound_ms, bound_by = bound(*spd_inverse_function_work(k, 1, n))
+        log(f"kernel {PANEL_NAME} k={k} {label}: no plain version (its CPU time would not fit); "
+            f"limb 0 against float64 LAPACK {rel:.3e} relative; kernel {ms:.4f} ms (many "
+            f"{ms_many:.4f}) bound {bound_ms:.6f} ms ({bound_by}); launches per call {per_call}")
+        assert bool(ok.all()) and rel < 1e-8, rel
+        out["rows"][label + f" k={k}"] = dict(ms=ms, ms_many=ms_many, bound_ms=bound_ms,
+                                              bound_by=bound_by, lapack_rel_diff=rel,
+                                              launches_per_call=per_call)
+    # n = 256: the single launch's last size, and the panel route's on the
+    # same input (max_rows lowered for the call)
+    a = panel_inputs(3, 256).to(dev)
+    single_ms = median_ms(lambda: cuda_xf.spd_inverse_xf(a), 3)
+    single, _ = cuda_xf.spd_inverse_xf(a)
+    max_rows = cuda_dd.max_rows
+    cuda_dd.max_rows = lambda k: 255
+    try:
+        panel_ms = median_ms(lambda: cuda_xf.spd_inverse_xf(a), 3)
+        panel, ok = cuda_xf.spd_inverse_xf(a)
+    finally:
+        cuda_dd.max_rows = max_rows
+    diff = float(torch.max(torch.abs(torch.sum(panel.double() - single.double(), dim=1))))
+    rel = diff / float(torch.max(torch.abs(single[:, 0])))
+    log(f"K5 at n=256, k=3: single launch {single_ms:.3f} ms, panel route {panel_ms:.3f} ms "
+        f"({single_ms / panel_ms:.1f}x); the two agree to {rel:.3e} relative")
+    assert bool(ok.all()) and rel < 1e-30, rel
+    out["n256_k3"] = dict(single_ms=single_ms, panel_ms=panel_ms, rel_diff=rel)
+
+
+def solve_sp86(dev, record, packed, cpu_future):
+    """Phase 14 (b): sp86 at k=3 on the all-kernels route for
+    SP86_ITERATIONS, counters reset: its kernels (the panel route's among
+    them) and no other must launch, and the first SP86_PARITY iterations
+    must follow a CPU worker on the same route to 1e-10 (cpu_future, read
+    once the card is done).  Returns the launches."""
+    from clrs_tpu_torch import solverank1sdp
+
+    t0 = time.time()
+    problem = sp86_packed(packed["data"], dev)
+    pack_s = time.time() - t0
+    info = problem.info
+    log(f"sp86: front-end {packed['front_end_s']:.3f} s and packing's preconditioning "
+        f"{packed['prepare_s']:.3f} s (in a worker), packing {pack_s:.3f} s; m {info.m}, "
+        f"blocks {info.Y_blocksizes}, dim_S {info.dim_S}, n_y {info.n_y}")
+    reset_counters()
+    t0 = time.time()
+    res = solverank1sdp(problem=problem, verbose=False, **ALL_KERNELS_ROUTE,
+                        **dict(LADDER_SOLVE, maxiterations=SP86_ITERATIONS))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counters()
+    phases = per_phase_ms(res)
+    cpu = cpu_future.get()
+    rel = [max(abs(rg[key] - rc[key]) / max(abs(rc[key]), 1e-300)
+               for key in ("p_obj", "d_obj", "gap"))
+           for rg, rc in zip(res.history, cpu["history"])]
+    log(f"sp86 k=3 all-kernels route: status {res.status} iterations {res.iterations} wall "
+        f"{wall:.3f} s; launches per iteration " + ", ".join(
+            f"{n}={v / max(res.iterations, 1):.2f}" for n, v in launches.items()))
+    log("sp86 k=3 all-kernels route: ms/iter by phase: " + ", ".join(
+        f"{p}={v:.2f}" for p, v in phases.items()))
+    for row in res.history:
+        log(f"sp86 k=3 all-kernels route: iteration {row['iter']} p_obj {row['p_obj']!r} "
+            f"d_obj {row['d_obj']!r} gap {row['gap']:.3e} P/p/d errors "
+            f"{row['P_err']:.3e}/{row['p_err']:.3e}/{row['d_err']:.3e}")
+    log(f"sp86 k=3 all-kernels route: relative history difference gpu vs cpu over the first "
+        f"{len(rel)} iterations {max(rel, default=0.0)!r} (cpu {cpu['wall_s']:.3f} s)")
+    record["sp86"] = dict(front_end_s=packed["front_end_s"], prepare_s=packed["prepare_s"],
+                          pack_s=pack_s, dim_S=list(info.dim_S), n_y=info.n_y,
+                          status=res.status, iterations=res.iterations, wall_s=wall,
+                          launches=launches, phase_ms_per_iter=phases, cpu_rel_diff=rel,
+                          cpu_wall_s=cpu["wall_s"], history=res.history)
+    assert res.iterations == SP86_ITERATIONS, res.iterations
+    assert len(rel) == SP86_PARITY and max(rel) <= 1e-10, rel
+    assert all(np.isfinite(r[key]) for r in res.history for key in ("p_obj", "d_obj", "gap"))
+    for name, n in launches.items():
+        assert (n > 0) == (name in SP86_KERNELS), f"sp86: {name} launched {n} times"
+    return launches
+
+
+def check_sp86_lu(dev, record, cpu):
+    """Phase 14 (c): xf_inverse_lu of sp86's largest S_j at the cold start
+    (k=3, 261 rows: the LU solves take the panel trisolves) on the card,
+    against the CPU port's."""
+    from clrs_tpu_torch.ops.linalg import xf_inverse_lu
+    from clrs_tpu_torch.ops.xfloat import XF
+
+    S = torch.from_numpy(cpu["S"]).to(dev)
+    t0 = time.time()
+    inv, ok = xf_inverse_lu(XF(S))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    want = torch.from_numpy(cpu["inv"]).to(dev)
+    same = bits_equal(inv.limbs, want)
+    rel = float(torch.max(torch.abs(torch.sum(inv.limbs - want, dim=0)))
+                / torch.max(torch.abs(want[0])))
+    log(f"sp86 S_j {tuple(S.shape[1:])} xf_inverse_lu k=3: card {wall:.3f} s, cpu {cpu['s']:.3f} s; "
+        f"bitwise the cpu's: {same}; {rel:.3e} relative")
+    record["sp86_lu"] = dict(card_s=wall, cpu_s=cpu["s"], bitwise=same, rel_diff=rel)
+    assert bool(ok) and cpu["ok"]
+    assert same or rel <= 2.0 ** (10 - 53 * 3), rel
+
+
 def ptxas_report(text: str):
     """Registers, stack and spills of the k-limb kernels (and of the
-    out-of-line add and multiply of K5 and K7) at k=3, 10 and 12, of the
+    out-of-line add and multiply of K5 and K7, and K5's panel kernel) at
+    k=3, 10 and 12, of the
     matmul, the Schur block and the SPD inverse also at k=2 (K3, K2, K1),
     the matmul's 64-bit-index instances marked so, and of K9; K8's
     instances are named by op and by the dense form."""
     names = ("matmul_xf_kernel", "schur_pairs_kernel", "spd_inverse_xf_kernel",
-             "steplen_xf_kernel", "elemwise_xf_kernel", "xf_add_n", "xf_mul_n")
+             "steplen_xf_kernel", "elemwise_xf_kernel", "xf_add_n", "xf_mul_n",
+             "spd_panel_xf_kernel")
     out, cur = [], None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
@@ -1947,6 +2329,14 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     log(smi)
+    # phase 10 runs beside phases 4-6, 11 and 9 in a card process of its own
+    # where the card's compute mode lets a second process on it
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    shared = mode == "Default"
+    log(f"compute mode {mode}: phase 10 runs "
+        + ("in a card process of its own" if shared else "in this process"))
     dev = torch.device("cuda", 0)
     t_start = time.time()
     record = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1954,8 +2344,23 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} device {record['device']}")
 
-    # the pool's exit terminates its workers, on success and on failure
-    with get_context("spawn").Pool(3 + TREE_WORKERS) as pool:
+    # the pools' exit terminates their workers, on success and on failure;
+    # sp86's pool packs it, then runs its CPU iterations and LU at once
+    # the workers run at a lower priority than this process, which drives
+    # the card from one core and waits on the host between launches, and
+    # than the build's nvcc processes
+    sp86_pool = get_context("spawn").Pool(SP86_WORKERS, os.nice, (WORKER_NICE,))
+    sp86_futures = {}
+
+    def sp86_tasks(packed):  # in the pool's result thread, once the packing is done
+        sp86_futures["cpu"] = sp86_pool.apply_async(cpu_sp86, (packed["data"],))
+        sp86_futures["lu"] = sp86_pool.apply_async(cpu_sp86_lu, (packed["data"],))
+
+    sp86_futures["packed"] = sp86_pool.apply_async(sp86_pack_data, callback=sp86_tasks)
+    with sp86_pool, get_context("spawn").Pool(3 + TREE_WORKERS, os.nice, (WORKER_NICE,)) as pool:
+        # phase 14's longest task first: the panel row at k=10 (~7 min)
+        panel_futures = {(k, n): pool.apply_async(panel_plain, (k, n))
+                         for _, k, n in PANEL_SHAPES if k == 10}
         cpu_k2 = pool.apply_async(cpu_solve, (8, 5, 2))
         cpu_k3 = pool.apply_async(cpu_solve, (8, 5, 3))
         cpu_all = pool.apply_async(cpu_solve, (8, 5, 3, ALL_KERNELS_ROUTE))
@@ -1968,6 +2373,10 @@ def main():
         # phase 12's plain versions, wanted last (~480 s of one core's work on
         # the H100 machine)
         ladder_futures = {task: pool.apply_async(ladder_plain, (task,)) for task in ladder_tasks()}
+        # phase 14's other panel rows
+        panel_futures.update({(k, n): pool.apply_async(panel_plain, (k, n))
+                              for _, k, n in sorted(PANEL_SHAPES, key=lambda s: -s[1] ** 3 * s[2])
+                              if k != 10})
 
         from clrs_tpu_torch.ops import _build
 
@@ -1994,29 +2403,47 @@ def main():
                              config1_futures)
         done("kernels")
         launches = {}
-        launches[2], default_k2 = solve_config1(dev, record, 2, cpu_k2, 1e-20, 1e-9, None,
-                                                ("spd_inverse_dd", "schur_pairs", "matmul_dd"))
-        launches[3], default_k3 = solve_config1(
-            dev, record, 3, cpu_k3, None, 1e-12, "optimal",
-            ("schur_pairs", "matmul_xf", "spd_inverse_xf"))
-        done("config 1")
-        launches["dim24"] = solve_dim24(dev, record)
-        done("dim 24")
-        launches["all"], all_k3 = solve_all_kernels(dev, record, cpu_all, default_k3)
-        done("config 1 all-kernels")
-        sp16_rungs = solve_sp16_ladder(dev, record, cpu_sp16)
-        done("sp16 ladder")
-        solve_sp30(dev, record)
+        with get_context("spawn").Pool(1) as card_pool:
+            sp30_future = card_pool.apply_async(sp30_process) if shared else None
+            launches[2], default_k2 = solve_config1(
+                dev, record, 2, cpu_k2, 1e-20, 1e-9, None,
+                ("spd_inverse_dd", "schur_pairs", "matmul_dd"))
+            launches[3], default_k3 = solve_config1(
+                dev, record, 3, cpu_k3, None, 1e-12, "optimal",
+                ("schur_pairs", "matmul_xf", "spd_inverse_xf"), iterations=DEFAULT_K3_ITERATIONS)
+            done("config 1")
+            launches["dim24"] = solve_dim24(dev, record)
+            done("dim 24")
+            launches["config4"] = solve_config4(dev, record)
+            done("config 4")
+            sp16_rungs = solve_sp16_ladder(dev, record, cpu_sp16)
+            done("sp16 ladder")
+            record["sp30"], lines = sp30_future.get() if shared else sp30_process()
+        for line in lines:
+            log(line)
         done("sp30")
-        launches["config4"] = solve_config4(dev, record)
-        done("config 4")
+        launches["all"], all_k3 = solve_all_kernels(dev, record, cpu_all, default_k3, cpu_k3)
+        done("config 1 all-kernels")
         check_ladder_kernels(dev, rows, ladder_futures)
         done("sphere-packing kernels")
-    profile_all_kernels(dev, record, record["config1_k3_routes"]["steady_it_per_s"]["all-kernels"])
-    profile_k1(dev, record)
-    done("profiles")
-    device_loop_phase(dev, record, all_k3, launches["all"], default_k2, sp16_rungs)
-    done("device loop")
+        panel_plain_out = {kn: f.get() for kn, f in panel_futures.items()}
+        done("phase 14's panel rows on the CPU")
+        pool.terminate()  # the workers' work is done: free their cores
+        profile_all_kernels(dev, record,
+                            record["config1_k3_routes"]["steady_it_per_s"]["all-kernels"])
+        profile_k1(dev, record)
+        done("profiles")
+        device_loop_phase(dev, record, all_k3, launches["all"], default_k2, sp16_rungs)
+        done("device loop")
+        check_panel_route(dev, record, rows, panel_plain_out)
+        done("panel route")
+        packed = sp86_futures["packed"].get()  # its callback has run when this returns
+        done("sp86's packing")
+        # the card's sp86 and LU while the CPU worker runs its iteration
+        launches["sp86"] = solve_sp86(dev, record, packed, sp86_futures["cpu"])
+        done("sp86")
+        check_sp86_lu(dev, record, sp86_futures["lu"].get())
+        done("sp86 LU")
 
     kernels = kernel_summary(rows, launches)
     record["total_s"] = time.time() - t_start

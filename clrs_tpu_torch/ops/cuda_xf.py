@@ -40,8 +40,8 @@ from typing import Tuple
 
 import torch
 
-from clrs_tpu_torch.ops import _build, xops
-from clrs_tpu_torch.ops.cuda_dd import (
+from clrs_tpu_torch.ops import _build, cuda_dd, xops
+from clrs_tpu_torch.ops.cuda_dd import (  # noqa: F401  (max_rows: read through cuda_dd)
     dd_spd_inverse,
     dd_spd_inverse_torch,
     max_rows,
@@ -424,8 +424,8 @@ def _cholesky_xops(A):
 def _forward_rows_xops(L, R):
     """W = L^-1 R by forward substitution, one row at a time, the sum over
     all columns of L (rows of W not yet solved are zero); limb lists of
-    (B, n, n)."""
-    W = [torch.zeros_like(x) for x in L]
+    (B, n, n) for L and (B, n, m) for R."""
+    W = [torch.zeros(x.shape, dtype=F64, device=x.device) for x in R]
     for i in range(L[0].shape[-1]):
         acc = xops.sum_axis(xops.mul([x[:, i, :, None] for x in L], W), axis=-2)
         nrm = xops.add([x[:, i, :] for x in R], xops.neg(acc))
@@ -435,11 +435,12 @@ def _forward_rows_xops(L, R):
     return W
 
 
-def spd_inverse_xf_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K5: limbs (B, k, n, n) -> (inv (B, k, n, n), ok
-    (B,)).  Per block: Cholesky by columns with the pivot flag on the
-    leading limb, W = L^-1 by rows, A^-1 = W^T W by sequential rank-1
-    accumulation; every matvec through the zero-padded halving tree."""
+def _spd_inverse_single_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5's single launch: limbs (B, k, n, n) -> (inv (B,
+    k, n, n), ok (B,)).  Per block: Cholesky by columns with the pivot
+    flag on the leading limb, W = L^-1 by rows, A^-1 = W^T W by sequential
+    rank-1 accumulation; every matvec through the zero-padded halving
+    tree."""
     B, k, n, _ = limbs.shape
     L, okf = _cholesky_xops([limbs[:, q] for q in range(k)])
     eye = torch.eye(n, dtype=F64, device=limbs.device).expand(B, n, n)
@@ -453,32 +454,180 @@ def spd_inverse_xf_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     return torch.stack(acc, dim=1), torch.all(okf, dim=1)
 
 
+def _spd_inverse_route(x: torch.Tensor, limb_axis: int, single, single_plain, plain: bool):
+    """The one place where the SPD inverse's route is chosen, for x (k, B,
+    n, n) at limb_axis 0 or (B, k, n, n) at 1, returned in that layout with
+    ok (B,): up to max_rows(k) rows one launch of csrc/spd_inverse_xf.cu
+    counted as single's (the K1 or K5 wrapper), or single_plain, its plain
+    version, taking (B, k, n, n); above, at any k, the panel route
+    (spd_inverse_panels).  plain takes the plain versions on any device."""
+    k, n = x.shape[limb_axis], x.shape[-1]
+    if n <= cuda_dd.max_rows(k):
+        if not plain:
+            return spd_inverse_launch(single, x, limb_axis)
+        inv, ok = single_plain(x if limb_axis == 1 else x.transpose(0, 1))
+        return (inv if limb_axis == 1 else inv.transpose(0, 1)), ok
+    inv, ok = spd_inverse_panels(x if limb_axis == 0 else x.transpose(0, 1), plain)
+    return (inv if limb_axis == 0 else inv.transpose(0, 1)), ok
+
+
+def spd_inverse_xf_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5 on any device: limbs (B, k, n, n) -> (inv (B, k,
+    n, n), ok (B,)), the single launch's (_spd_inverse_single_torch) up to
+    max_rows(k) rows and the panel route's above."""
+    return _spd_inverse_route(limbs, 1, spd_inverse_xf, _spd_inverse_single_torch, True)
+
+
 def spd_inverse_xf(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5 wrapper: limbs (B, k, n, n) float64, k >= 3, n <= 256, any
-    strides -> (inv (B, k, n, n), ok (B,)), the limbs read where they
-    lie."""
+    """K5 wrapper: limbs (B, k, n, n) float64, k >= 3, any strides -> (inv
+    (B, k, n, n), ok (B,)), the limbs read where they lie: one launch up
+    to max_rows(k) rows, the panel route (spd_inverse_panels) above."""
     if limbs.device.type == "cpu":
         return spd_inverse_xf_torch(limbs)
     _check_cuda("spd_inverse_xf", limbs)
     if limbs.ndim != 4 or limbs.shape[1] < 3:
         raise ValueError(f"spd_inverse_xf: need (B, k>=3, n, n), got {tuple(limbs.shape)}")
-    return spd_inverse_launch(spd_inverse_xf, limbs, 1)
+    return _spd_inverse_route(limbs, 1, spd_inverse_xf, _spd_inverse_single_torch, False)
 
 
 spd_inverse_xf.launches = 0
 
 
 def xf_spd_inverse_batched(x_limbs: torch.Tensor):
-    """SPD inverse of the stacked-XF layout, limbs (k, B, n, n): K1 at
-    k=2, K5 at k >= 3 (each counted as its wrapper's launch), read in place
-    and returned in that layout; a CPU tensor takes the plain version."""
-    wrapper, plain = ((dd_spd_inverse, dd_spd_inverse_torch) if x_limbs.shape[0] == 2
-                      else (spd_inverse_xf, spd_inverse_xf_torch))
-    if x_limbs.device.type == "cpu":
-        inv, ok = plain(x_limbs.transpose(0, 1))
-        return inv.transpose(0, 1), ok
-    _check_cuda("xf_spd_inverse_batched", x_limbs)
-    return spd_inverse_launch(wrapper, x_limbs, 0)
+    """SPD inverse of the stacked-XF layout, limbs (k, B, n, n), read in
+    place and returned in that layout: K1 at k=2 and K5 at k >= 3 (each
+    counted as its wrapper's launch) up to max_rows(k) rows, the panel
+    route above (_spd_inverse_route).  A CPU tensor takes the plain
+    versions; a CUDA tensor launches the kernels or raises."""
+    plain = x_limbs.device.type == "cpu"
+    if not plain:
+        _check_cuda("xf_spd_inverse_batched", x_limbs)
+    single = ((dd_spd_inverse, dd_spd_inverse_torch) if x_limbs.shape[0] == 2
+              else (spd_inverse_xf, _spd_inverse_single_torch))
+    return _spd_inverse_route(x_limbs, 0, *single, plain)
+
+
+# ---------------------------------------------------------------------------
+# K5's panel route: the SPD inverse above the single launch's rows
+# ---------------------------------------------------------------------------
+
+# The panel width: b rows a panel (csrc/spd_panel_xf.cu: kMaxPanel at
+# most).  On an H100 16 was the fastest of 8, 16 and 32 at k=3 (2.74 ms
+# at 256 rows against 2.76 and 3.26; 24.8 ms at 1024 against 26.6 and
+# 29.9) and within 3 % of 8 at k = 6 and 10 (tools/panel_widths.py;
+# PERF.md section 6): a
+# panel is a chain of b Cholesky columns and b slab rows, each Cholesky
+# column's dot products one round of the block's 16 lane groups at 16
+# rows and four at 32, while 8 rows double the panels and with them the
+# K4 and K8 launches between them.  L_d and the slab's columns fit in
+# registers and per-block scratch at any width up to 32.
+SPD_PANEL = 16
+SPD_MAX_PANEL = 32  # kMaxPanel
+_PANEL_THREADS = 256  # csrc/chol_xf.cuh: kBlockThreads
+
+
+def spd_panel_xf_torch(t: torch.Tensor, b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the panel route's factor step: t (k, B, r, c) ->
+    (Z (k, B, b, c - b), ok (B, b)): L_d L_d^T = t[:, :, :b, :b] as K5
+    factors it, Z = L_d^-1 t[:, :, :b, b:] by rows."""
+    k = t.shape[0]
+    L, okf = _cholesky_xops([t[q, :, :b, :b] for q in range(k)])
+    return torch.stack(_forward_rows_xops(L, [t[q, :, :b, b:] for q in range(k)])), okf
+
+
+def _spd_panel_xf_plain(t, b, z, y, okf):
+    """spd_panel_xf's writes from its plain version, on any device."""
+    zt, okt = spd_panel_xf_torch(t, b)
+    z.copy_(zt)
+    y.copy_(-zt[..., :y.shape[-1]])
+    okf.copy_(okt)
+
+
+def _panel_plan(t, b, z, y, okf):
+    """The description csrc/spd_panel_xf.cu's clrs_spd_panel_xf takes
+    for the factor step on t, writing z, y = -z[..., :nA] and the flags
+    okf (B, b), each at its strides (columns and flag rows dense), and the
+    float64 scratch it needs."""
+    k, B, _, c = t.shape
+    w, nA = c - b, y.shape[-1]
+    if (z.shape != (k, B, b, w) or y.shape[:3] != (k, B, b) or okf.shape != (B, b)
+            or z.stride(-1) != 1 or y.stride(-1) != 1 or okf.stride(-1) != 1
+            or not 1 <= b <= SPD_MAX_PANEL):
+        raise ValueError(f"spd_panel_xf: bad operands t {tuple(t.shape)} b={b} z "
+                         f"{tuple(z.shape)} y {tuple(y.shape)} ok {tuple(okf.shape)}")
+    np2 = 1 << max(b - 1, 0).bit_length()
+    per_block = _PANEL_THREADS // min(np2, 32)
+    blocks = -(-w // per_block)
+    desc = struct.pack("<16q", k, B, b, w, nA, *t.stride(), z.stride(0), z.stride(1),
+                       z.stride(2), y.stride(0), y.stride(1), y.stride(2), okf.stride(0))
+    return desc, B * blocks * (k * (b * b + b) + b)
+
+
+def spd_panel_xf(t: torch.Tensor, b: int, z: torch.Tensor, y: torch.Tensor,
+                 okf: torch.Tensor):
+    """The panel route's factor step: t (k, B, r, c) float64 at any
+    strides, its diagonal block t[:, :, :b, :b] -> writes z (k, B, b, c -
+    b) = L_d^-1 t[:, :, :b, b:], y = -z[..., :y.shape[-1]] and okf (B, b),
+    the pivot flags (1.0 / 0.0).  A CPU tensor takes the plain version
+    (spd_panel_xf_torch); a CUDA tensor launches csrc/spd_panel_xf.cu's
+    clrs_spd_panel_xf, counted in spd_panel_xf.launches."""
+    if t.device.type == "cpu":
+        _spd_panel_xf_plain(t, b, z, y, okf)
+        return
+    _check_cuda("spd_panel_xf", t, z, y, okf)
+    desc, scratch_len = _panel_plan(t, b, z, y, okf)
+    scratch = t.new_empty((scratch_len,))
+    rc = _build.library().clrs_spd_panel_xf(desc, t.data_ptr(), z.data_ptr(), y.data_ptr(),
+                                            okf.data_ptr(), scratch.data_ptr(),
+                                            _build.stream(t))
+    if rc:
+        _build.check(rc, "clrs_spd_panel_xf", t.shape[0])
+    spd_panel_xf.launches += 1
+
+
+spd_panel_xf.launches = 0
+
+
+def spd_inverse_panels(a: torch.Tensor, plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SPD inverse of a (k, B, n, n), any strides -> (inv (k, B, n, n), ok
+    (B,)), by the reference's right-looking panels on T = [A | I] (k, B,
+    n, 2n): per panel of SPD_PANEL rows, spd_panel_xf factors T's diagonal
+    block and solves its slab, Z = L_d^-1 T[:b, b:]; K4 (K3 at k=2) forms
+    -Z_A^T Z from Z's A columns negated, and K8 adds it to T[b:, b:], the
+    next panel's T.  Z's identity half, row by row, is W = L^-1, and
+    A^-1 = W^T W is one more K4 (K3) launch.  No library call: on a CUDA
+    tensor every step is a kernel of this package, on a CPU tensor or with
+    plain its plain version (on any device), so the card is bitwise the
+    CPU.
+
+    Against the reference's xf_spd_inverse (panel Cholesky, then the panel
+    trisolves L^-T (L^-1 I)) and against the Pallas K5 (one Cholesky, W =
+    L^-1, W^T W) the association differs: halving-tree dot products over
+    a panel and sequential rank-1 accumulation in K4 here, the product
+    tree of xf_matmul or XLA's there.  Each step is exact-EFT, so they
+    agree to the ulp of the last limb (times the condition), not bit for
+    bit."""
+    k, B, n = a.shape[0], a.shape[1], a.shape[-1]
+    if plain:
+        factor, add = _spd_panel_xf_plain, elemwise_xf_torch
+        matmul = dd_matmul_seq_torch if k == 2 else matmul_xf_torch
+    else:
+        factor, add = spd_panel_xf, elemwise_xf
+        matmul = dd_matmul if k == 2 else matmul_xf
+    t = a.new_zeros((k, B, n, 2 * n))
+    t[..., :n].copy_(a)
+    t[0, :, :, n:].diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    z = a.new_empty((k, B, n, 2 * n))
+    okf = a.new_empty((B, n))
+    for p0 in range(0, n, SPD_PANEL):
+        p1 = min(p0 + SPD_PANEL, n)
+        zs = z[:, :, p0:p1, p1:]
+        y = a.new_empty((k, B, p1 - p0, n - p1))
+        factor(t, p1 - p0, zs, y, okf[:, p0:p1])
+        if p1 < n:
+            t = add("add", t[:, :, p1 - p0:, p1 - p0:], matmul(y.mT, zs))
+    w = z[..., n:]
+    return matmul(w.mT, w), torch.all(okf > 0.5, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -558,9 +707,9 @@ def _steplen_table(groups):
     w_off = ok_off = 0
     for ms, dms in groups:
         n = ms[0].shape[-1]
-        if n > max_rows(k) or len(ms) != len(dms):
+        if n > cuda_dd.max_rows(k) or len(ms) != len(dms):
             raise ValueError(f"steplen_sandwich_xf: {len(ms)} M and {len(dms)} dM blocks "
-                             f"of n={n} (at most {max_rows(k)} rows at k={k})")
+                             f"of n={n} (at most {cuda_dd.max_rows(k)} rows at k={k})")
         spans.append((len(ms), n, w_off, ok_off))
         for m, dm in zip(ms, dms):
             if (m.shape != (k, n, n) or dm.shape != (k, n, n) or m.dtype != F64

@@ -11,8 +11,10 @@ columns/rows; dynamic slices become plain indexing.  Factorizations
 return an ``ok`` flag per block instead of raising (the degradation
 ladder of the solver switches to LU on failure).
 
-The blocked panel forms (n >= 256 in the reference) are not ported yet:
-the dispatchers raise for n >= 256.
+At n >= ``_PANEL_MIN_N`` the Cholesky and the triangular solves dispatch
+to the reference's blocked panel forms, whose trailing updates are
+``xf_matmul`` products; ``xf_lu`` has no panel form and runs at any n, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -28,20 +30,24 @@ from clrs_tpu_torch.ops.xfloat import (
     xf_abs,
     xf_add,
     xf_div,
+    xf_matmul,
     xf_mul,
     xf_sqrt,
     xf_sum,
     xf_where,
 )
 
+# The reference's defaults (clrs_tpu/ops/linalg.py:45-46): the order at
+# which the Cholesky and the triangular solves take the panel forms, and
+# the panel width.  The reference reads them from
+# CLRS_PANEL_CHOL_MIN_N / CLRS_PANEL_CHOL_PANEL; the port keeps them as
+# constants.
 _PANEL_MIN_N = 256
+_PANEL_DEFAULT = 32
 
 
-def _check_seq(n: int):
-    if n >= _PANEL_MIN_N:
-        raise NotImplementedError(
-            f"n={n}: the panel factorizations (n >= {_PANEL_MIN_N}) are "
-            "not ported yet")
+def _panel(n: int) -> bool:
+    return n >= _PANEL_MIN_N
 
 
 def _matvec(a: XF, v: XF) -> XF:
@@ -60,8 +66,10 @@ def _iota(n: int, device) -> torch.Tensor:
 
 def xf_cholesky(a: XF) -> Tuple[XF, torch.Tensor]:
     """Lower-triangular L with a = L L^T; returns (L, ok) with ok False
-    per block where a pivot is <= 0."""
-    _check_seq(a.shape[-1])
+    per block where a pivot is <= 0.  At n >= _PANEL_MIN_N the blocked
+    panel form."""
+    if _panel(a.shape[-1]):
+        return xf_cholesky_panel(a, panel=_PANEL_DEFAULT)
     return xf_cholesky_seq(a)
 
 
@@ -90,9 +98,50 @@ def xf_cholesky_seq(a: XF) -> Tuple[XF, torch.Tensor]:
     return L, ok
 
 
+def xf_cholesky_panel(a: XF, panel: int = 32) -> Tuple[XF, torch.Tensor]:
+    """Blocked right-looking Cholesky (clrs_tpu/ops/linalg.py:124-204).
+    Per panel: the (panel x panel) diagonal block by the sequential kernel;
+    W = L_d^-1 A[p0:p0+panel, :], the whole row slab; L's column block is
+    W^T masked to rows >= p0; the trailing update A -= W_f^T W_f, W_f = W
+    masked to the columns past the panel, through the plain xf_matmul.  An
+    n that the panel does not divide is padded with an exact identity tail.
+    The reference's ``axis``/``n_dev`` arguments (row bands of the trailing
+    update under shard_map) are left out: they belong to the port's
+    parallel layer, not written yet."""
+    n0 = a.shape[-1]
+    k, dev, bs = a.k, a.device, _batch(a)
+    n = -(-n0 // panel) * panel
+    if n != n0:
+        pad = n - n0
+        lim = torch.nn.functional.pad(a.limbs, (0, pad, 0, pad))
+        eye = XF.eye(pad, k=k, dtype=a.dtype, device=dev).limbs
+        lim[..., n0:, n0:] = eye.reshape((k,) + (1,) * len(bs) + (pad, pad))
+        a = XF(lim)
+    cols = _iota(n, dev)
+    zeros_col = XF.zeros((n, panel), k=k, dtype=a.dtype, device=dev)
+    zeros_row = XF.zeros((panel, n), k=k, dtype=a.dtype, device=dev)
+    A = a
+    L = XF.zeros(bs + (n, n), k=k, dtype=a.dtype, device=dev)
+    ok = torch.ones(bs, dtype=torch.bool, device=dev)
+    for p0 in range(0, n, panel):
+        Ld, okd = xf_cholesky_seq(A[..., p0:p0 + panel, p0:p0 + panel])
+        ok = ok & okd
+        W = xf_solve_tril(Ld, A[..., p0:p0 + panel, :])  # (..., panel, n)
+        Lcol = xf_where((cols >= p0)[:, None], W.mT, zeros_col)
+        L.limbs[..., p0:p0 + panel] = Lcol.limbs
+        Wf = xf_where((cols >= p0 + panel)[None, :], W, zeros_row)
+        U = xf_matmul(Wf.mT, Wf)
+        A = xf_add(A, XF(-U.limbs))
+    if n != n0:
+        L = XF(L.limbs[..., :n0, :n0].contiguous())
+    return L, ok
+
+
 def xf_solve_tril(l: XF, b: XF, unit_diag: bool = False) -> XF:
-    """Solve L x = b with L lower triangular; b is (..., n, m)."""
-    _check_seq(l.shape[-1])
+    """Solve L x = b with L lower triangular; b is (..., n, m).  At n >=
+    _PANEL_MIN_N the blocked panel form."""
+    if _panel(l.shape[-1]):
+        return xf_solve_tril_panel(l, b, unit_diag=unit_diag, panel=_PANEL_DEFAULT)
     return xf_solve_tril_seq(l, b, unit_diag=unit_diag)
 
 
@@ -113,9 +162,34 @@ def xf_solve_tril_seq(l: XF, b: XF, unit_diag: bool = False) -> XF:
     return x
 
 
+def xf_solve_tril_panel(l: XF, b: XF, unit_diag: bool = False, panel: int = 32) -> XF:
+    """Blocked forward substitution (clrs_tpu/ops/linalg.py:241-264): per
+    panel, one xf_matmul of its rows of L left of the panel with the rows
+    of x already solved, subtracted from b's rows, then the diagonal block
+    by the sequential solve.  b is (..., n, m), or an unbatched (n,)
+    vector, solved as one column and returned as a vector."""
+    squeeze = b.ndim == 1
+    if squeeze:
+        b = XF(b.limbs[..., None])
+    n, m = l.shape[-1], b.shape[-1]
+    x = XF.zeros(_broadcast_shape(l.shape[:-2], b.shape[:-2]) + (n, m), k=l.k,
+                 dtype=l.dtype, device=l.device)
+    for p0 in range(0, n, panel):
+        p1 = min(p0 + panel, n)
+        rhs = b[..., p0:p1, :]
+        if p0:
+            acc = xf_matmul(l[..., p0:p1, :p0], x[..., :p0, :])
+            rhs = xf_add(rhs, XF(-acc.limbs))
+        xp = xf_solve_tril_seq(l[..., p0:p1, p0:p1], rhs, unit_diag=unit_diag)
+        x.limbs[..., p0:p1, :] = xp.limbs
+    return XF(x.limbs[..., 0]) if squeeze else x
+
+
 def xf_solve_triu(u: XF, b: XF, unit_diag: bool = False) -> XF:
-    """Solve U x = b with U upper triangular; b is (..., n, m)."""
-    _check_seq(u.shape[-1])
+    """Solve U x = b with U upper triangular; b is (..., n, m).  At n >=
+    _PANEL_MIN_N the blocked panel form."""
+    if _panel(u.shape[-1]):
+        return xf_solve_triu_panel(u, b, unit_diag=unit_diag, panel=_PANEL_DEFAULT)
     return xf_solve_triu_seq(u, b, unit_diag=unit_diag)
 
 
@@ -136,6 +210,26 @@ def xf_solve_triu_seq(u: XF, b: XF, unit_diag: bool = False) -> XF:
     return x
 
 
+def xf_solve_triu_panel(u: XF, b: XF, unit_diag: bool = False, panel: int = 32) -> XF:
+    """Blocked back substitution (clrs_tpu/ops/linalg.py:300-322): the
+    panels of xf_solve_tril_panel from the bottom up."""
+    squeeze = b.ndim == 1
+    if squeeze:
+        b = XF(b.limbs[..., None])
+    n, m = u.shape[-1], b.shape[-1]
+    x = XF.zeros(_broadcast_shape(u.shape[:-2], b.shape[:-2]) + (n, m), k=u.k,
+                 dtype=u.dtype, device=u.device)
+    for p0 in reversed(range(0, n, panel)):
+        p1 = min(p0 + panel, n)
+        rhs = b[..., p0:p1, :]
+        if p1 < n:
+            acc = xf_matmul(u[..., p0:p1, p1:], x[..., p1:, :])
+            rhs = xf_add(rhs, XF(-acc.limbs))
+        xp = xf_solve_triu_seq(u[..., p0:p1, p0:p1], rhs, unit_diag=unit_diag)
+        x.limbs[..., p0:p1, :] = xp.limbs
+    return XF(x.limbs[..., 0]) if squeeze else x
+
+
 def _take_rows(limbs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """limbs (k, ..., n, m), idx (..., n) -> rows permuted per batch."""
     k = limbs.shape[0]
@@ -148,7 +242,6 @@ def xf_lu(a: XF) -> Tuple[XF, torch.Tensor, torch.Tensor]:
     """LU with partial pivoting: returns (LU packed, perm, ok); perm is the
     row permutation with a[perm] = L @ U."""
     n = a.shape[-1]
-    _check_seq(n)
     k, dev = a.k, a.device
     bs = _batch(a)
     iota = _iota(n, dev)

@@ -590,7 +590,8 @@ def test_row_kernels_at_max_rows(cuda, kernel):
     """K5 and K7 at the largest n their wrappers admit, at k=12, where a
     thread takes the most registers: both launch, flag the indefinite
     block and agree with float64 LAPACK on the other to 1e-10 of its
-    largest entry; one row more raises."""
+    largest entry; one row more raises for K7 and takes K5's panel route
+    (which flags the zero block)."""
     k = 12
     n = cuda_xf.max_rows(k)
     rng = np.random.default_rng(500)
@@ -601,7 +602,7 @@ def test_row_kernels_at_max_rows(cuda, kernel):
     if kernel == "spd_inverse_xf":
         out, ok = cuda_xf.spd_inverse_xf(m)
         got, want = out[0, 0], torch.linalg.inv(m0)
-        too_big = lambda x: cuda_xf.spd_inverse_xf(x)  # noqa: E731
+        too_big = None
     else:
         d = rand_xf(rng, (2, n, n), k).transpose(0, 1).to(cuda)
         d = (d + d.transpose(-1, -2)) / 2
@@ -615,5 +616,10 @@ def test_row_kernels_at_max_rows(cuda, kernel):
     scale = float(torch.max(torch.abs(want)))
     assert float(torch.max(torch.abs(got - want))) <= 1e-10 * scale
     wider = torch.zeros((1, k, n + 1, n + 1), dtype=torch.float64, device=cuda)
+    if too_big is None:
+        before = cuda_xf.spd_panel_xf.launches
+        assert cuda_xf.spd_inverse_xf(wider)[1].tolist() == [False]
+        assert cuda_xf.spd_panel_xf.launches > before
+        return
     with pytest.raises(ValueError):
         too_big(wider)

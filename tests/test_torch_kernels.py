@@ -16,6 +16,7 @@ themselves run only on the card
 plain version bit for bit.
 """
 
+import jax
 import jax.numpy as jnp
 import mpmath
 import numpy as np
@@ -718,6 +719,38 @@ def test_spd_inverse_k_plain_matches_pallas_interpret():
     inv_t, ok_t = cuda_xf.spd_inverse_xf_torch(t(limbs))
     assert np.asarray(ok_p).tolist() == ok_t.tolist() == [True, False]
     assert_close_xf(np.asarray(inv_p[0]), inv_t[0].numpy(), cond * k_ulp(k))
+
+
+def test_spd_inverse_panel_route_plain_matches_reference_and_pallas(monkeypatch):
+    """K5's panel route (cuda_xf.spd_inverse_panels) on the plain versions,
+    with cuda_dd.max_rows lowered so that n = 3 takes it in panels of 2
+    and 1 rows, on the inputs of the test above: the flags, the stacked
+    layout bit for bit, and the values against the Pallas K5 in interpret
+    mode and the reference's xf_spd_inverse (op by op) to cond k-limb
+    ulps, the tolerance of the test above."""
+    from clrs_tpu.ops import linalg as jl
+    from clrs_tpu.ops.pallas_xf import xf_spd_inverse_pallas_k
+
+    k, cond = 3, 1e6
+    rng = np.random.default_rng(70)
+    limbs = spd_xf(rng, 2, 3, k, cond)
+    limbs[1, 0, 2, 2] = -50.0
+    monkeypatch.setattr(cuda_dd, "max_rows", lambda kk: 1)
+    monkeypatch.setattr(cuda_xf, "SPD_PANEL", 2)
+    launches = cuda_xf.spd_panel_xf.launches
+    inv_t, ok_t = cuda_xf.spd_inverse_xf_torch(t(limbs))
+    assert cuda_xf.spd_panel_xf.launches == launches  # the plain version counts nothing
+    stacked, ok_s = cuda_xf.xf_spd_inverse_batched(t(limbs).transpose(0, 1))
+    assert ok_t.tolist() == ok_s.tolist() == [True, False]
+    assert torch.equal(stacked.transpose(0, 1).contiguous().view(torch.int64),
+                       inv_t.contiguous().view(torch.int64))
+    inv_p, ok_p = xf_spd_inverse_pallas_k(jnp.asarray(limbs), interpret=True)
+    assert np.asarray(ok_p).tolist() == [True, False]
+    assert_close_xf(np.asarray(inv_p[0]), inv_t[0].numpy(), cond * k_ulp(k))
+    with jax.disable_jit():
+        inv_j, ok_j = jl.xf_spd_inverse(JXF(jnp.asarray(limbs[0])))
+    assert bool(ok_j)
+    assert_close_xf(np.asarray(inv_j.limbs), inv_t[0].numpy(), cond * k_ulp(k))
 
 
 @pytest.mark.parametrize("k", KS)

@@ -167,7 +167,61 @@ def test_jacobi_min_eig_matches_reference(n):
     assert np.all(got <= np.linalg.eigvalsh(a)[:, 0] + 1e-12 * scale)
 
 
-def test_panel_sizes_raise():
-    a = TXF.eye(256, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        tl.xf_cholesky(a)
+@pytest.fixture
+def one_thread():
+    """torch's CPU ops on one thread for the test: at 256 rows each limb
+    tensor passes the size at which torch splits an elementwise op over its
+    intra-op threads, and with several test processes on the machine those
+    threads contend (xf_lu at n = 256 took ~2 min, against ~3 s on one
+    thread).  Elementwise ops, gathers and argmax give the same bits on
+    any number of threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_cholesky_at_256_takes_the_panel_form(one_thread):
+    """At n = _PANEL_MIN_N = 256 xf_cholesky dispatches to the panel form
+    at the reference's panel width 32: bitwise the direct call."""
+    a = TXF(torch.from_numpy(spd_dd(np.random.default_rng(256), 256, 1e4)))
+    L, ok = tl.xf_cholesky(a)
+    Lp, okp = tl.xf_cholesky_panel(a, panel=32)
+    assert bool(ok) and bool(okp)
+    assert_bitwise(Lp, L)
+
+
+def test_panel_dispatch_bitwise(monkeypatch):
+    """With _PANEL_MIN_N and _PANEL_DEFAULT lowered in both packages (as
+    tests/test_linalg.py:262-275 lowers the reference's), the dispatched
+    xf_spd_inverse and xf_inverse_lu (whose LU solves reach the panel
+    trisolves) equal the reference's limb for limb; 12 rows in panels of
+    3, whose matmuls sum odd contractions."""
+    n = 12
+    for mod in (jl, tl):
+        monkeypatch.setattr(mod, "_PANEL_MIN_N", 8)
+        monkeypatch.setattr(mod, "_PANEL_DEFAULT", 3)
+    rng = np.random.default_rng(1200)
+    a = spd_dd(rng, n, 1e6)
+    g = general_dd(rng, n)
+    with jax.disable_jit():
+        inv_j, ok_j = jl.xf_spd_inverse(jxf(a))
+        lu_inv_j, oklu_j = jl.xf_inverse_lu(jxf(g))
+    inv_t, ok_t = tl.xf_spd_inverse(txf(a))
+    lu_inv_t, oklu_t = tl.xf_inverse_lu(txf(g))
+    assert bool(ok_j) and bool(ok_t) and bool(oklu_j) and bool(oklu_t)
+    assert_bitwise(inv_j, inv_t)
+    assert_bitwise(lu_inv_j, lu_inv_t)
+
+
+def test_lu_at_256_bitwise(one_thread):
+    """xf_lu has no panel form and no size limit, as in the reference: at
+    n = 256, where the dispatchers take the panel forms, it equals the
+    reference's limb for limb."""
+    g = general_dd(np.random.default_rng(1300), 256)
+    with jax.disable_jit():
+        lu_j, perm_j, ok_j = jl.xf_lu(jxf(g))
+    lu_t, perm_t, ok_t = tl.xf_lu(txf(g))
+    assert bool(ok_j) and bool(ok_t)
+    assert np.array_equal(np.asarray(perm_j), perm_t.numpy())
+    assert_bitwise(lu_j, lu_t)

@@ -49,6 +49,14 @@ def reference_run():
     return bound, res
 
 
+@pytest.fixture(scope="module")
+def port_runs():
+    """The port's solve on the CPU on the default route (False) and the
+    kernel route's plain versions (True), each run once."""
+    return {route: t_bound(N, D, use_cuda_matmul=route, device=CPU, **SOLVE)
+            for route in (False, True)}
+
+
 def to_numpy_tree(problem):
     """The JAX-packed problem as nested dicts/lists of numpy limb arrays."""
     def a(x):
@@ -110,21 +118,41 @@ def test_packing_and_interop_limb_for_limb():
     assert sx.shape == (t_info.total_dim_S, 1) and sX[0][0].shape == (1, 1)
 
 
-def test_slice_history_matches_reference(reference_run):
+def test_slice_history_matches_reference(reference_run, port_runs):
     _, jres = reference_run
-    bound, tres = t_bound(N, D, use_cuda_matmul=False, device=CPU, **SOLVE)
+    bound, tres = port_runs[False]
     assert tres.status == jres.status
     assert tres.iterations == jres.iterations
     assert_history_close(jres.history, tres.history, 1e-12)
     assert abs(bound - 240.0) < 1e-3
 
 
-def test_slice_kernel_route_matches_reference(reference_run):
+def test_slice_kernel_route_matches_reference(reference_run, port_runs):
     _, jres = reference_run
-    bound, tres = t_bound(N, D, use_cuda_matmul=True, device=CPU, **SOLVE)
+    bound, tres = port_runs[True]
     assert tres.status == jres.status
     assert_history_close(jres.history, tres.history, 1e-8)
     assert abs(bound - 240.0) < 1e-3
+
+
+@pytest.mark.parametrize("use_cuda_matmul", [False, True])
+def test_slice_with_panel_thresholds(port_runs, monkeypatch, use_cuda_matmul):
+    """The slice with the panel thresholds lowered below its S_j and Q, so
+    that the default route's inverses take ops/linalg.py's panel forms
+    and the kernel route's K5's panel route (both 2 rows a panel): the
+    same status and iterations, and the bound to 1e-10, as with the
+    defaults."""
+    from clrs_tpu_torch.ops import cuda_dd, cuda_xf
+    from clrs_tpu_torch.ops import linalg as tl
+
+    bound, res = port_runs[use_cuda_matmul]
+    monkeypatch.setattr(tl, "_PANEL_MIN_N", 2)
+    monkeypatch.setattr(tl, "_PANEL_DEFAULT", 2)
+    monkeypatch.setattr(cuda_dd, "max_rows", lambda k: 1)
+    monkeypatch.setattr(cuda_xf, "SPD_PANEL", 2)
+    bound_p, res_p = t_bound(N, D, use_cuda_matmul=use_cuda_matmul, device=CPU, **SOLVE)
+    assert (res_p.status, res_p.iterations) == (res.status, res.iterations)
+    assert abs(bound_p - bound) <= 1e-10 * abs(bound)
 
 
 @pytest.mark.parametrize("prec", [53, 256])
