@@ -36,9 +36,11 @@ Phases (any failure raises, and the script exits non-zero):
      inputs): limbs and flags must be bitwise equal; prints
      the kernel's median time of one call, its time per call over a run
      of back-to-back calls, the plain version's median time, and each
-     call's bound (bytes over 3.35 TB/s or FP64 instructions over their
-     rate, 1.7e13 per second, an FMA counted as one and every exact
-     product as the FMA's 2, whatever form the kernel runs; the larger);
+     call's bound (clrs_tpu_torch/utils/flops.py: bytes over 3.35 TB/s or
+     FP64 instructions over their rate, 1.7e13 per second, an FMA counted
+     as one and every exact product as the FMA's 2, whatever form the
+     kernel runs; the larger; the SPD inverse's and the step length's on
+     the function's own work, whichever route computes it);
   4. solves the Delsarte kissing-number bound in dimension 8 at 2d=10 on
      the card at k=2 with every launch counter reset first: K1, K2 and K3
      must have launched, the bound must be 240 to 1e-9, and the run must
@@ -149,14 +151,27 @@ Phases (any failure raises, and the script exits non-zero):
      xf_inverse_lu of sp86's largest S_j at the cold start
      (261 rows, k=3) on the card against the CPU port's, to the ulp of the
      last limb;
- 15. prints the kernels' JSON line, then the result line
+ 15. runs the cluster-sharded solve (parallel/hetero.py), after phase 7:
+     (a) config 1 at k=3 through solve_hetero_sharded on one rank on the
+     card, all-kernels route, counters reset: `optimal` at 240 to 1e-12,
+     phase 7's status, iterations within 2 and bound to 1e-12, its rows
+     held to the same solve of a CPU worker to 1e-10 over the whole
+     history (the k=3 noise floor lies far below the thresholds, as in
+     phase 7), and K2, K4, K5, K7 and K8 launched and no other
+     kernel; (b) sp16 packed at k=3 for 10 iterations through the hetero
+     step against the phase driver on the card, every row to 1e-10;
+     (c) two ranks of clrs_tpu_torch/tools/mp_hetero_worker.py on the one
+     card, gloo carrying the CUDA tensors, 3 steps of config 1 at k=3:
+     every iterate and diagnostic bitwise the same steps on one rank,
+     which are (a)'s first rows bit for bit; prints the phase's seconds;
+ 16. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} as the last line.
 Phase 10 runs in a card process of its own (a spawned worker) beside
 phases 4-6, 11 and 9, in that order, where the card's compute mode is
 Default (else after them, in this process); phase 7 follows.  Each solve
 leaves the card idle ~95 % of its time, so the two share it, and those
-phases' times are taken beside phase 10's; phases 3, 7, 8 and 12-14 run
-alone on the card.  Phase 8's profiles run after phases 9-12, and phase 13
+phases' times are taken beside phase 10's; phases 3, 7, 8 and 12-15 run
+alone on the card (15 beside its own two ranks).  Phase 8's profiles run after phases 9-12, and phase 13
 after them: with phase 13's profiled chunk before it, phase 8's window on
 the card showed 942 of K8's 943 launches per iteration.
 The full record also goes to chiprun_out/chip_smoke.json.
@@ -176,6 +191,15 @@ from multiprocessing import get_context
 import mpmath
 import numpy as np
 import torch
+
+from clrs_tpu_torch.utils.flops import (
+    bound,
+    elemwise_work,
+    matmul_work,
+    schur_work,
+    spd_inverse_function_work,
+    steplen_function_work,
+)
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "spd_inverse_dd": ("clrs_tpu_torch/csrc/spd_inverse_xf.cu",
@@ -209,10 +233,6 @@ STEPLEN_LADDER = (2, 3, 4, 6, 10)
 ALL_KERNELS_ROUTE = dict(use_cuda_inverse=True, use_cuda_steplength=True,
                          use_cuda_elemwise=True)
 LADDER = (3, 4, 6, 10)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP64_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores, an FMA counted as two
-# the FP64 instruction rate: adds, multiplies and fused multiply-adds, one each
-FP64_INSTR_PER_S = FP64_PER_S / 2
 SOLVE = dict(omega_p=100.0, omega_d=100.0, verbose=False)
 
 
@@ -224,120 +244,6 @@ def log(*a):
         print(*a, flush=True)
     else:
         LOG_LINES.append(" ".join(map(str, a)))
-
-
-# ---------------------------------------------------------------------------
-# Operation counts and bounds
-# ---------------------------------------------------------------------------
-
-
-class _Count:
-    """A stand-in float that counts the FP64 instructions applied to it.
-    An exact product (xfloat.two_prod, Dekker's splitting, 17 operations)
-    counts as the 2 of its fused multiply-add form (csrc/eft.cuh:
-    two_prod_fma), whichever form a kernel runs: a bound counts the least
-    the function needs.  Dekker's two splits of an exact product each
-    begin with a multiply by 2^27 + 1, which marks them."""
-
-    n = 0
-    splits = 0
-    mark = None  # xfloat's split constant, 2^27 + 1
-
-    def _op(self, other=None):
-        _Count.n += 1
-        if isinstance(other, float) and other == _Count.mark:
-            _Count.splits += 1
-        return self
-
-    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _op
-
-    def __neg__(self):
-        return self._op()
-
-    @classmethod
-    def instructions(cls, fn, k):
-        """FP64 instructions of fn on two k-limb stand-ins."""
-        from clrs_tpu_torch.ops import xfloat
-
-        cls.n, cls.splits, cls.mark = 0, 0, xfloat._SPLIT
-        fn([cls() for _ in range(k)], [cls() for _ in range(k)])
-        assert cls.splits % 2 == 0
-        return cls.n - (17 - 2) * (cls.splits // 2)
-
-
-def op_counts(k: int) -> dict:
-    """FP64 instructions of one k-limb add, multiply, div and sqrt (add and
-    mul counted by running the plain arithmetic on counting stand-ins,
-    every exact product as an FMA's 2)."""
-    from clrs_tpu_torch.ops import xops
-
-    c = {"add": _Count.instructions(xops.add, k), "mul": _Count.instructions(xops.mul, k)}
-    steps = max(1, int(np.ceil(np.log2(k))) + 1)
-    c["recip"] = 1 + steps * (2 * c["mul"] + 2 * c["add"] + k)
-    c["div"] = c["recip"] + 3 * c["mul"] + 2 * c["add"] + k
-    c["sqrt"] = 2 + (steps + 1) * (3 * c["mul"] + 2 * c["add"] + 2 * k)
-    return c
-
-
-def bound(nbytes: float, instructions: float):
-    """The least time the card could take (ms), and what bounds it: the
-    bytes over the memory rate, or the FP64 instructions over their
-    rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, instructions / FP64_INSTR_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def matmul_work(k, B, n, K, m, steps, Ba=None, Bb=None):
-    """K3/K4: bytes of A (Ba matrices, B where not broadcast), B (Bb) and
-    C, and steps multiply-adds per output."""
-    c = op_counts(k)
-    Ba, Bb = Ba or B, Bb or B
-    return (8 * k * (Ba * n * K + Bb * K * m + B * n * m),
-            B * n * m * steps * (c["mul"] + c["add"]))
-
-
-def schur_work(k, G, m, T):
-    """K2: the bytes it must touch, PX and PY (m^2 T^2 each), HH (T^2) and
-    the output (P^2 T^2, P = m (m + 1) / 2) once per cluster, and 5
-    multiplies and 3 adds per output entry."""
-    c = op_counts(k)
-    P = m * (m + 1) // 2
-    return (8 * k * G * T * T * (2 * m * m + 1 + P * P),
-            G * P * P * T * T * (5 * c["mul"] + 3 * c["add"]))
-
-
-def _chol_solve_ops(k, n):
-    """Operations of the Cholesky and one forward substitution of n rows
-    (K1, K5, K7), each matvec through the halving tree, the reciprocal of
-    each diagonal entry of L taken once and every div by it the five
-    operations that follow (csrc/eft.cuh: xf_div_recip)."""
-    c = op_counts(k)
-    np2 = 1 << max(n - 1, 0).bit_length()
-    matvec = n * c["mul"] + (np2 - 1) * c["add"] + k + c["add"]
-    div = c["div"] - c["recip"]
-    chol = n * (n * matvec + c["sqrt"] + c["recip"] + n * div)
-    solve = n * n * (matvec + div)
-    return chol, solve, matvec, div
-
-
-def spd_inverse_work(k, B, n):
-    c = op_counts(k)
-    chol, solve, _, _ = _chol_solve_ops(k, n)
-    wtw = n * n * n * (c["mul"] + c["add"])
-    return 8 * B * (2 * k * n * n + n), B * (chol + solve + wtw)
-
-
-def steplen_work(k, B, n):
-    """K7: K5's Cholesky and row solve, then a column solve of n^2 entries
-    (a matvec and a div each, the masks n^2 k products) and the plain
-    output add; reads M and dM, writes W and the flags."""
-    chol, solve, matvec, div = _chol_solve_ops(k, n)
-    cols = n * n * (matvec + div + n * k) + n * n
-    return 8 * B * (2 * k * n * n + n * n + n), B * (chol + solve + cols)
-
-
-def elemwise_work(k, N, op):
-    return 3 * k * 8 * N, N * op_counts(k)[op]
 
 
 # ---------------------------------------------------------------------------
@@ -658,7 +564,7 @@ def inverse_row_from_cpu(case, sp, k, i, dev, futures, reps, main):
     plain = futures[task].get()
     want = tuple(torch.from_numpy(x).to(dev) for x in plain["out"])
     row = case("spd_inverse_xf", k, label, cuda_xf.spd_inverse_xf, lambda *_: want, (a,),
-               spd_inverse_work(k, B, n), reps, 0, main, plain_ms=1e3 * plain["s"])
+               spd_inverse_function_work(k, B, n), reps, 0, main, plain_ms=1e3 * plain["s"])
     row["plain_device"] = "cpu"
     return row
 
@@ -677,7 +583,7 @@ def steplen_groups(sp, k, dev, futures):
             plain = futures[task].get()
             want.append(tuple(torch.from_numpy(x).to(dev) for x in plain["out"]))
             secs.append(plain["s"])
-            work.append(steplen_work(k, count, n))
+            work.append(steplen_function_work(k, count, n))
     return groups, want, secs, work
 
 
@@ -695,16 +601,16 @@ def check_kernels(dev, record, rows, tree_futures, config1_futures):
     for label, (B, n, cond) in INVERSE_SHAPES:
         a = spd_batch(rng, B, n, 2, cond, dev)
         case("spd_inverse_dd", 2, label, cuda_dd.dd_spd_inverse,
-             cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, B, n), 50, 3, True)
+             cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_function_work(2, B, n), 50, 3, True)
     a = spd_batch(rng, 256, 64, 2, 1e10, dev)
     a[7, 0, 5, 5] = -1e3
     row = case("spd_inverse_dd", 2, "wide 256x64x64 (1 indefinite)", cuda_dd.dd_spd_inverse,
-               cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, 256, 64), 5, 1, False)
+               cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_function_work(2, 256, 64), 5, 1, False)
     assert row["flags"][7] is False, "K1: the indefinite block was not flagged"
     for n in (257, 1024):
         a = spd_batch(rng, 1, n, 2, 1e4, dev)
         case("spd_inverse_dd", 2, f"1x{n}x{n}", cuda_dd.dd_spd_inverse,
-             cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, 1, n), 3, 0, False)
+             cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_function_work(2, 1, n), 3, 0, False)
 
     # K2 at k=2, the whole block in one launch on the pairings as they lie:
     # the main cluster has m=1 (one pair) and T = K*rmax = 11; the ten sign
@@ -752,7 +658,7 @@ def check_kernels(dev, record, rows, tree_futures, config1_futures):
                 continue
             a = spd_batch(rng, B, n, k, cond, dev)
             case("spd_inverse_xf", k, label, cuda_xf.spd_inverse_xf,
-                 cuda_xf.spd_inverse_xf_torch, (a,), spd_inverse_work(k, B, n), 20,
+                 cuda_xf.spd_inverse_xf_torch, (a,), spd_inverse_function_work(k, B, n), 20,
                  1 if k < 6 else 0, True)
 
     # wide: K4 above K6's size gate (k*n*m > 2e6 tiles on the TPU), and K5
@@ -764,7 +670,7 @@ def check_kernels(dev, record, rows, tree_futures, config1_futures):
     a = spd_batch(rng, 64, 32, 3, 1e10, dev)
     a[5, 0, 3, 3] = -1e3
     row = case("spd_inverse_xf", 3, "wide 64x32x32 (1 indefinite)", cuda_xf.spd_inverse_xf,
-               cuda_xf.spd_inverse_xf_torch, (a,), spd_inverse_work(3, 64, 32), 5, 1, False)
+               cuda_xf.spd_inverse_xf_torch, (a,), spd_inverse_function_work(3, 64, 32), 5, 1, False)
     assert row["flags"][5] is False, "K5: the indefinite block was not flagged"
 
     # K7 on the config-1 step-length groups (M SPD, dM symmetric indefinite)
@@ -788,7 +694,7 @@ def check_kernels(dev, record, rows, tree_futures, config1_futures):
             for n in (6, 5, 6, 5):
                 m, d = sandwich_inputs(1, n, k, 1e6)
                 groups.append(([m[0]], [d[0].transpose(-1, -2)]))
-            work = [steplen_work(k, 1, n) for n in (6, 5, 6, 5)]
+            work = [steplen_function_work(k, 1, n) for n in (6, 5, 6, 5)]
             plain, plain_ms = (lambda g: [
                 cuda_xf.steplen_sandwich_xf_torch(torch.stack(ms), torch.stack(ds))
                 for ms, ds in g]), None
@@ -808,16 +714,16 @@ def check_kernels(dev, record, rows, tree_futures, config1_futures):
                 ms, ds = groups[i]
                 row = case("steplen_xf", k, label, cuda_xf.steplen_sandwich_xf,
                            lambda *_, w=want[i]: w, (torch.stack(ms), torch.stack(ds)),
-                           steplen_work(k, B, n), 20, 0, True, plain_ms=1e3 * secs[i])
+                           steplen_function_work(k, B, n), 20, 0, True, plain_ms=1e3 * secs[i])
                 row["plain_device"] = "cpu"
                 continue
             case("steplen_xf", k, label, cuda_xf.steplen_sandwich_xf,
                  cuda_xf.steplen_sandwich_xf_torch, sandwich_inputs(B, n, k, 1e6),
-                 steplen_work(k, B, n), 20, 1, True)
+                 steplen_function_work(k, B, n), 20, 1, True)
     m, d = sandwich_inputs(64, 32, 3, 1e10)
     m[5, 0, 4, 4] = -1e3
     row = case("steplen_xf", 3, "wide 64x32x32 (1 indefinite)", cuda_xf.steplen_sandwich_xf,
-               cuda_xf.steplen_sandwich_xf_torch, (m, d), steplen_work(3, 64, 32), 5, 1,
+               cuda_xf.steplen_sandwich_xf_torch, (m, d), steplen_function_work(3, 64, 32), 5, 1,
                False)
     assert row["flags"][5] is False, "K7: the indefinite block was not flagged"
 
@@ -879,7 +785,7 @@ def check_kernels(dev, record, rows, tree_futures, config1_futures):
             plain = (want, median_ms(lambda: cuda_dd.dd_spd_inverse_wide_torch(a), 3, warm=False)
                      if main else start.elapsed_time(end))
         row = case("spd_inverse_dd_wide", 2, label, cuda_dd.dd_spd_inverse_wide,
-                   lambda *_: plain[0], (a,), spd_inverse_work(2, B, n),
+                   lambda *_: plain[0], (a,), spd_inverse_function_work(2, B, n),
                    50 if main else (2 if big else 5), 0, main, plain_ms=plain[1])
         inv_w, ok_w = cuda_dd.dd_spd_inverse_wide(a)
         inv_1, ok_1 = cuda_dd.dd_spd_inverse(a)
@@ -920,9 +826,9 @@ def check_kernels(dev, record, rows, tree_futures, config1_futures):
         plain = dict(futures[0].get(), **futures[1].get())
         for name, kern, args, outs, secs, work in (
                 ("spd_inverse_xf", cuda_xf.spd_inverse_xf, (a,), ("inv", "ok"), "k5_s",
-                 spd_inverse_work(k, 2, n)),
+                 spd_inverse_function_work(k, 2, n)),
                 ("steplen_xf", cuda_xf.steplen_sandwich_xf, (m, d), ("w", "okw"), "k7_s",
-                 steplen_work(k, 2, n))):
+                 steplen_function_work(k, 2, n))):
             want = tuple(torch.from_numpy(plain[o]).to(dev) for o in outs)
             row = case(name, k, f"tree 2x{n}x{n} (1 indefinite)", kern,
                        lambda *_, want=want: want, args, work, 5, 0, False,
@@ -967,7 +873,7 @@ def check_ladder_kernels(dev, rows, futures):
                 for label, (B, n, cond) in SP_INVERSE_SHAPES[sp]:
                     a = spd_batch(rng, B, n, 2, cond, dev)
                     case("spd_inverse_dd", 2, label, cuda_dd.dd_spd_inverse,
-                         cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_work(2, B, n), 20, 1,
+                         cuda_dd.dd_spd_inverse_torch, (a,), spd_inverse_function_work(2, B, n), 20, 1,
                          False)
             else:
                 for i in range(len(SP_INVERSE_SHAPES[sp])):
@@ -1010,6 +916,19 @@ def read_counters():
 def per_phase_ms(res):
     n = max(res.iterations - 2, 1)  # timings exclude the first 2 iterations
     return {k: 1e3 * v / n for k, v in sorted(res.timings.items())}
+
+
+def held_rows(gpu, cpu, floor=None):
+    """The largest relative difference of p_obj, d_obj and gap between two
+    histories over the rows before either reaches an error below floor
+    (None: every row), and that count of rows."""
+    held = next((i for i, (rg, rc) in enumerate(zip(gpu, cpu)) if floor is not None
+                 and min(rg["p_err"], rg["d_err"], rc["p_err"], rc["d_err"]) < floor),
+                min(len(gpu), len(cpu)))
+    worst = max((abs(rg[key] - rc[key]) / max(abs(rc[key]), 1e-300)
+                 for rg, rc in zip(gpu[:held], cpu[:held]) for key in ("p_obj", "d_obj", "gap")),
+                default=0.0)
+    return worst, held
 
 
 # phase 5's iterations on the card: the default route at k=3 takes ~3.7 s an
@@ -1559,17 +1478,12 @@ def solve_sp16_ladder(dev, record, cpu_future):
     assert [r["k"] for r in rungs] == list(DEFAULT_LADDER[:len(rungs)])
 
     cpu = cpu_future.get()
-    first = rungs[0]["res"].history
-    rel = [max(abs(rg[key] - rc[key]) / max(abs(rc[key]), 1e-300)
-               for key in ("p_obj", "d_obj", "gap")) for rg, rc in zip(first, cpu["history"])]
-    held = next((i for i, (rg, rc) in enumerate(zip(first, cpu["history"]))
-                 if min(rg["p_err"], rg["d_err"], rc["p_err"], rc["d_err"]) < 1e-20), len(rel))
-    worst = max(rel[:held], default=0.0)
+    worst, held = held_rows(rungs[0]["res"].history, cpu["history"], 1e-20)
     log(f"sp16 k=2: relative history difference gpu vs cpu {worst!r} over the first {held} "
         f"iterations (cpu {cpu['wall_s']:.3f} s for {len(cpu['history'])})")
     assert held >= 1 and worst <= 1e-10, f"sp16 k=2: gpu and cpu differ by {worst!r}"
     record["sp16_ladder"] = dict(bound=bound_, status=res.status, wall_s=wall,
-                                 rungs=rung_record(rungs), k2_cpu_rel_diff=rel,
+                                 rungs=rung_record(rungs), k2_cpu_rel_diff=worst,
                                  k2_cpu_held=held, k2_cpu_wall_s=cpu["wall_s"])
     return rungs
 
@@ -2096,19 +2010,6 @@ def panel_plain(k, n):
     return dict(out=tuple(x.numpy() for x in out), s=time.time() - t0)
 
 
-def spd_inverse_function_work(k, B, n):
-    """The SPD inverse as a function, whatever route computes it: A read
-    and A^-1 written once (k limbs each, a flag a block), and the least
-    arithmetic it needs: the multiply-adds of the Cholesky ((n^3 - n) / 6),
-    of W = L^-1 ((n^3 - n) / 6) and of the symmetric W^T W (n (n + 1)
-    (n + 2) / 6), n square roots, and the n^2 divisions by L's diagonal
-    (n (n - 1) / 2 in the Cholesky, n (n + 1) / 2 in L^-1)."""
-    c = op_counts(k)
-    macs = (n ** 3 - n) // 3 + n * (n + 1) * (n + 2) // 6
-    ops = macs * (c["mul"] + c["add"]) + n * n * c["div"] + n * c["sqrt"]
-    return 8 * B * (2 * k * n * n + 1), B * ops
-
-
 def check_panel_route(dev, record, rows, plain):
     """Phase 14 (a): the panel route bitwise against its plain version
     (computed in the CPU workers) at PANEL_SHAPES, its launches per call,
@@ -2273,6 +2174,149 @@ def check_sp86_lu(dev, record, cpu):
     assert same or rel <= 2.0 ** (10 - 53 * 3), rel
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the cluster-sharded solve (parallel/hetero.py)
+# ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 3  # (c)'s steps on two ranks
+SP16_WINDOW = 10  # (b)'s iterations of sp16's k=3 rung
+SHARDED_KERNELS = ("schur_pairs", "matmul_xf", "spd_inverse_xf", "steplen_xf", "elemwise_xf")
+
+
+def hetero_config1(device):
+    """solve_hetero_sharded of config 1 at k=3 on the all-kernels route
+    (on the CPU its plain versions), one rank."""
+    from clrs_tpu_torch.core.solver import SolverConfig
+    from clrs_tpu_torch.parallel.hetero import solve_hetero_sharded
+    from clrs_tpu_torch.tools.mp_hetero_worker import delsarte_problem
+
+    cfg = SolverConfig(use_cuda_matmul=True, **ALL_KERNELS_ROUTE, **SOLVE)
+    return solve_hetero_sharded(delsarte_problem(5, 3, device), cfg=cfg,
+                                maxiterations=cfg.maxiterations)
+
+
+def cpu_hetero_config1():
+    """Phase 15 (a)'s CPU run; in a worker process while the card works."""
+    torch.set_num_threads(2)
+    t0 = time.time()
+    res = hetero_config1("cpu")
+    return dict(history=res.history, status=res.status, iterations=res.iterations,
+                bound=1.0 - res.dual_objective, wall_s=time.time() - t0)
+
+
+def sharded_phase(dev, record, phase7, cpu_future):
+    """Phase 15: (a) config 1 at k=3 through solve_hetero_sharded on one
+    rank on the card, all-kernels route: `optimal` at 240 to 1e-12, phase
+    7's status, iterations within 2 and bound to 1e-12, its rows against the
+    CPU's run to 1e-10 over the whole history (as phase 7's), and K2, K4, K5, K7 and
+    K8 launched; (b) sp16's k=3 rung for SP16_WINDOW iterations through the
+    hetero step against the phase driver's on the same packed problem, to
+    the same tolerances; (c) two ranks on the one card (gloo carrying the
+    CUDA tensors; NCCL takes one rank a card) for SHARDED_STEPS steps of
+    config 1 at k=3, every iterate and diagnostic bitwise the one-rank
+    steps, which are (a)'s first rows bit for bit."""
+    import shutil
+    import socket
+    import tempfile
+
+    from clrs_tpu_torch.core.problem import pack_constraints
+    from clrs_tpu_torch.core.solver import SolverConfig, solverank1sdp
+    from clrs_tpu_torch.parallel.hetero import solve_hetero_sharded
+    from clrs_tpu_torch.tools import mp_hetero_worker as worker
+
+    t_phase = time.time()
+    out = record["sharded"] = {}
+    # (c)'s ranks start first: each takes ~8 s to reach the card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "clrs_tpu_torch.tools.mp_hetero_worker", str(r), "2", str(port),
+         os.path.join(tmp, f"r{r}.npz"), "--device", "cuda", "--backend", "gloo",
+         "--what", "hetero", "--d", "5", "--k", "3", "--steps", str(SHARDED_STEPS),
+         "--all-kernels"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(2)]
+    try:
+        # (a)
+        reset_counters()
+        t0 = time.time()
+        res = hetero_config1(dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counters()
+        bound_ = 1.0 - res.dual_objective
+        bound7 = 1.0 - phase7.dual_objective
+        cpu = cpu_future.get()
+        worst, held = held_rows(res.history, cpu["history"])
+        log(f"sharded (a) config1 k=3 all-kernels, one rank: bound {bound_!r} status "
+            f"{res.status} iterations {res.iterations} wall {wall:.3f} s; phase 7: "
+            f"{bound7!r} {phase7.status} {phase7.iterations}; cpu: {cpu['bound']!r} "
+            f"{cpu['status']} {cpu['iterations']} ({cpu['wall_s']:.1f} s), rows held "
+            f"{worst!r} over {held}; launches {launches}")
+        out["a"] = dict(bound=bound_, status=res.status, iterations=res.iterations, wall_s=wall,
+                        launches=launches, cpu_rel_diff=worst, cpu_held=held,
+                        cpu_wall_s=cpu["wall_s"], history=res.history)
+        assert res.status == "optimal" == phase7.status, (res.status, phase7.status)
+        assert abs(bound_ - 240.0) < 1e-12 and abs(bound_ - bound7) < 1e-12, bound_
+        assert abs(res.iterations - phase7.iterations) <= 2, res.iterations
+        assert held == min(res.iterations, cpu["iterations"]) and worst <= 1e-10, \
+            f"sharded (a): gpu and cpu differ by {worst!r}"
+        for name, n in launches.items():
+            assert (n > 0) == (name in SHARDED_KERNELS), f"sharded (a): {name} launched {n}"
+
+        # (b)
+        old = mpmath.mp.prec
+        try:
+            cons, b, info = sphere_problem(8)
+            problem = pack_constraints(cons, b, info=info, k=3, device=dev)
+        finally:
+            mpmath.mp.prec = old
+        opts = dict(LADDER_SOLVE, maxiterations=SP16_WINDOW, verbose=False, **ALL_KERNELS_ROUTE)
+        t0 = time.time()
+        hres = solve_hetero_sharded(problem, cfg=SolverConfig(**opts), maxiterations=SP16_WINDOW)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        dres = solverank1sdp(problem=problem, **opts)
+        t2 = time.time()
+        worst, held = held_rows(hres.history, dres.history)
+        log(f"sharded (b) sp16 k=3, {SP16_WINDOW} iterations: hetero {t1 - t0:.3f} s, phase "
+            f"driver {t2 - t1:.3f} s; rows held {worst!r} over {held}")
+        out["b"] = dict(hetero_s=t1 - t0, driver_s=t2 - t1, rel_diff=worst, held=held,
+                        history=hres.history)
+        assert len(hres.history) == len(dres.history) == SP16_WINDOW
+        assert held == SP16_WINDOW and worst <= 1e-10, f"sharded (b): differ by {worst!r}"
+
+        # (c): the one-rank steps here, then the two ranks' output
+        one = {}
+        worker.run_hetero(5, 3, SHARDED_STEPS, dev, None, one, True)
+        for i in range(SHARDED_STEPS):
+            row = res.history[i]
+            for key in ("mu", "p_obj", "d_obj", "gap", "alpha_p", "alpha_d"):
+                assert float(one[f"hetero/{i}/diag/{key}"]) == row[key], (i, key)
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        log(f"sharded (c): two gloo ranks with CUDA tensors on one card FAILED (ranks {failed}): "
+            + logs[failed[0]][-2000:].replace("\n", " | "))
+        raise AssertionError("sharded (c): the two gloo ranks failed on the card")
+    ranks = [dict(np.load(os.path.join(tmp, f"r{r}.npz"))) for r in range(2)]
+    shutil.rmtree(tmp)
+    bad = worker.differing(one, ranks, "hetero/")
+    log(f"sharded (c) two gloo ranks on one card, {SHARDED_STEPS} steps of config1 k=3: "
+        f"{len(one)} leaves, {len(bad)} not bitwise the one rank's {bad[:5]}")
+    out["c"] = dict(leaves=len(one), differing=bad)
+    assert not bad, bad
+    out["s"] = time.time() - t_phase
+    log(f"sharded phase: {out['s']:.1f} s")
+
+
 def ptxas_report(text: str):
     """Registers, stack and spills of the k-limb kernels (and of the
     out-of-line add and multiply of K5 and K7, and K5's panel kernel) at
@@ -2370,6 +2414,7 @@ def main():
         tree_futures = {kn: [pool.apply_async(tree_plain, kn + (kernel,)) for kernel in ("k5", "k7")]
                         for kn in trees}
         cpu_sp16 = pool.apply_async(cpu_sphere, (8, 2, LADDER_PARITY_ITERATIONS))
+        cpu_hetero = pool.apply_async(cpu_hetero_config1)
         # phase 12's plain versions, wanted last (~480 s of one core's work on
         # the H100 machine)
         ladder_futures = {task: pool.apply_async(ladder_plain, (task,)) for task in ladder_tasks()}
@@ -2424,6 +2469,8 @@ def main():
         done("sp30")
         launches["all"], all_k3 = solve_all_kernels(dev, record, cpu_all, default_k3, cpu_k3)
         done("config 1 all-kernels")
+        sharded_phase(dev, record, all_k3, cpu_hetero)
+        done("sharded")
         check_ladder_kernels(dev, rows, ladder_futures)
         done("sphere-packing kernels")
         panel_plain_out = {kn: f.get() for kn, f in panel_futures.items()}

@@ -18,7 +18,10 @@ Layers (bottom-up):
   apps/    applications (the Delsarte LP bound, N-species sphere packing,
            polynomial minimization on the simplex) and SDPB-format export
            and import
-  utils/   checkpoints of the iterate, the mpmath oracle IPM
+  utils/   checkpoints of the iterate, the mpmath oracle IPM, the flop
+           and bound model
+  parallel/ the cluster-sharded solve over the ranks of a
+           torch.distributed process group, one device each
 
 The entry points (``solverank1sdp``, ``solve_with_escalation``,
 ``solve_on_device`` (on its problem's own device),
@@ -40,6 +43,8 @@ from clrs_tpu_torch.core.solver import SolverConfig, make_fused_step, solverank1
 from clrs_tpu_torch.models.mpmp import solvempmp
 from clrs_tpu_torch.models.prepare import prepareabc
 from clrs_tpu_torch.ops.xfloat import XF
+from clrs_tpu_torch.parallel.hetero import solve_hetero_sharded
+from clrs_tpu_torch.parallel.multihost import solve_hetero_multihost
 from clrs_tpu_torch.utils.checkpoint import load_state, save_state
 
 __all__ = [
@@ -61,4 +66,6 @@ __all__ = [
     "write_sdpb_files",
     "save_state",
     "load_state",
+    "solve_hetero_sharded",
+    "solve_hetero_multihost",
 ]

@@ -51,6 +51,7 @@ from clrs_tpu_torch.utils.oracle import solve_oracle as t_oracle
 from test_torch_escalate import mp_prec  # noqa: F401 (a fixture)
 from test_torch_slice import KEYS, to_numpy_tree
 from test_torch_xfloat import assert_bitwise
+from test_torch_xfloat import torch_one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")

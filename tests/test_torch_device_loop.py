@@ -53,6 +53,8 @@ from clrs_tpu_torch.ops.xfloat import XF
 from test_solver_small import make_lp_constraint
 from test_torch_slice import to_numpy_tree
 
+from test_torch_xfloat import torch_one_thread  # noqa: F401
+
 CPU = torch.device("cpu")
 F64 = torch.float64
 

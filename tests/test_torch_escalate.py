@@ -38,6 +38,7 @@ from clrs_tpu_torch.ops.xfloat import XF
 from clrs_tpu_torch.utils import checkpoint as t_checkpoint
 
 from test_torch_xfloat import assert_bitwise
+from test_torch_xfloat import torch_one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -37,6 +37,7 @@ from clrs_tpu_torch.ops.xfloat import xf_sum as txf_sum
 from test_torch_cuda import matmul_operands as cuda_matmul_operands
 from test_torch_linalg import spd_dd
 from test_torch_xfloat import assert_bitwise, rand_dd, rand_xf
+from test_torch_xfloat import torch_one_thread  # noqa: F401
 
 REL_INTERPRET = 2.0 ** -48
 

@@ -24,6 +24,7 @@ from clrs_tpu_torch.ops import linalg as tl
 from clrs_tpu_torch.ops.xfloat import XF as TXF
 
 from test_torch_xfloat import assert_bitwise
+from test_torch_xfloat import torch_one_thread  # noqa: F401
 
 
 def spd_dd(rng, n, cond):

@@ -28,6 +28,7 @@ from clrs_tpu_torch.ops.xfloat import XF as TXF
 
 from test_torch_linalg import spd_dd
 from test_torch_xfloat import assert_bitwise
+from test_torch_xfloat import torch_one_thread  # noqa: F401
 
 PANEL = 3
 

@@ -34,6 +34,7 @@ from clrs_tpu_torch.core.problem import pack_constraints as t_pack
 from clrs_tpu_torch.interop import problem_from_numpy, state_from_numpy
 
 from test_torch_xfloat import assert_bitwise
+from test_torch_xfloat import torch_one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -84,7 +85,10 @@ NEW_MODULES = ("clrs_tpu_torch.core.escalate", "clrs_tpu_torch.core.device_loop"
                "clrs_tpu_torch.utils.checkpoint",
                "clrs_tpu_torch.models.mpmp", "clrs_tpu_torch.apps.sphere_packing",
                "clrs_tpu_torch.apps.polymin", "clrs_tpu_torch.apps.sdpb_export",
-               "clrs_tpu_torch.apps.sdpb_import", "clrs_tpu_torch.utils.oracle")
+               "clrs_tpu_torch.apps.sdpb_import", "clrs_tpu_torch.utils.oracle",
+               "clrs_tpu_torch.utils.flops", "clrs_tpu_torch.parallel.sharded",
+               "clrs_tpu_torch.parallel.hetero", "clrs_tpu_torch.parallel.multihost",
+               "clrs_tpu_torch.tools.mp_hetero_worker", "clrs_tpu_torch.tools.bound_shares")
 
 
 def test_import_loads_neither_jax_nor_reference():

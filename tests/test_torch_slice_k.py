@@ -40,6 +40,7 @@ from clrs_tpu_torch.ops.xfloat import XF, xf_add
 
 from test_torch_slice import to_numpy_tree
 from test_torch_xfloat import assert_bitwise
+from test_torch_xfloat import torch_one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 N, D, K = 8, 2, 3

@@ -17,6 +17,18 @@ from clrs_tpu_torch.ops import xfloat as tx
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    """torch on one intra-op thread for a whole port test module (each
+    port test file imports this fixture): the suite runs in several worker
+    processes, whose intra-op threads only contend for the machine's
+    cores.  Every check holds on one thread, as on torch's default."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def rand_xf(rng, shape, k, scale=1.0, positive=False):
     """Normalized k-limb expansions (k, *shape): each limb at most half an
     ulp of the one above it."""
