@@ -164,14 +164,35 @@ Phases (any failure raises, and the script exits non-zero):
      card, gloo carrying the CUDA tensors, 3 steps of config 1 at k=3:
      every iterate and diagnostic bitwise the same steps on one rank,
      which are (a)'s first rows bit for bit; prints the phase's seconds;
- 16. prints the kernels' JSON line, then the result line
+ 16. runs the intra-cluster split (parallel/intra.py) and the int8-sliced
+     matmul (ops/mxu_matmul.py), after phase 15: (a) two ranks of
+     clrs_tpu_torch/tools/mp_hetero_worker.py on the one card, gloo
+     carrying the CUDA tensors, split config 1 at k=3 (T padded to a
+     multiple of 2 by pad_info_ranks) inside its clusters on the
+     all-kernels route: 3 fused steps with every leaf bitwise the same
+     steps on one rank, then solve_intra_sharded to `optimal` (gap under
+     1e-15, errors under 1e-30) with the bound 240 to 1e-12, K2, K4, K5,
+     K7 and K8 launched and no other kernel; prints the fused step's ms on
+     two ranks and on one; (b) the same ranks' panel-route SPD inverse
+     (ops/cuda_xf.spd_inverse_panels) with its row products in bands at
+     261, 262 and 512 rows at k=3, and the plain panel Cholesky at 64,
+     bitwise the one rank's, launching the panel kernel, K4 and K8 only;
+     (c) xf_matmul_mxu (torch._int_mm) on the card bitwise a CPU worker's
+     at config 1's pairing shapes at k = 2 and 3 and at (1024,64)x(64,1024)
+     at k=3, each call timed (also with its adds through K8, as the route
+     below runs it) beside K4 on the same operands, and config 1
+     at k=3 with use_cuda_matmul=False, use_mxu_matmul=True (X^-1, the step
+     lengths and the elementwise arithmetic on their kernels) to `optimal`
+     at 240 to 1e-12, its rows held to the CPU's run of the same route to
+     1e-10; prints the phase's seconds;
+ 17. prints the kernels' JSON line, then the result line
      {"ok": true, "device": {...}} as the last line.
 Phase 10 runs in a card process of its own (a spawned worker) beside
 phases 4-6, 11 and 9, in that order, where the card's compute mode is
 Default (else after them, in this process); phase 7 follows.  Each solve
 leaves the card idle ~95 % of its time, so the two share it, and those
-phases' times are taken beside phase 10's; phases 3, 7, 8 and 12-15 run
-alone on the card (15 beside its own two ranks).  Phase 8's profiles run after phases 9-12, and phase 13
+phases' times are taken beside phase 10's; phases 3, 7, 8 and 12-16 run
+alone on the card (15 and 16 beside their own two ranks).  Phase 8's profiles run after phases 9-12, and phase 13
 after them: with phase 13's profiled chunk before it, phase 8's window on
 the card showed 942 of K8's 943 launches per iteration.
 The full record also goes to chiprun_out/chip_smoke.json.
@@ -326,7 +347,7 @@ def in_place_operands(rng, k, dev):
              (3, 6, 6, 11, 1, 3)))
 
 
-# config-1 products of _mm (B, n, K, m): pairings, weighted-A and trace-A
+# config-1 products of core/kernels.matmul_route (B, n, K, m): pairings, weighted-A and trace-A
 # of the 6x6 and 5x5 blocks, and the ten 1x1 sign blocks batched as B=10
 MATMUL_SHAPES = (("(6,6)x(6,11)", (1, 6, 6, 11)), ("(11,6)x(6,11)", (1, 11, 6, 11)),
                  ("(6,11)x(11,6)", (1, 6, 11, 6)), ("(5,5)x(5,11)", (1, 5, 5, 11)),
@@ -894,14 +915,9 @@ def check_ladder_kernels(dev, rows, futures):
 
 
 def counters():
-    from clrs_tpu_torch.ops import cuda_dd, cuda_xf
+    from clrs_tpu_torch.ops.cuda_xf import launch_counters
 
-    return {"spd_inverse_dd": cuda_dd.dd_spd_inverse, "schur_pairs": cuda_xf.schur_pairs,
-            "matmul_dd": cuda_xf.dd_matmul, "matmul_xf": cuda_xf.matmul_xf,
-            "spd_inverse_xf": cuda_xf.spd_inverse_xf,
-            "steplen_xf": cuda_xf.steplen_sandwich_xf, "elemwise_xf": cuda_xf.elemwise_xf,
-            "spd_inverse_dd_wide": cuda_dd.dd_spd_inverse_wide,
-            "spd_panel_xf": cuda_xf.spd_panel_xf}
+    return launch_counters()
 
 
 def reset_counters():
@@ -1120,9 +1136,8 @@ def profile_all_kernels(dev, record, steady_it_s, check=True):
                     for (owner, attr), label in zip(
                             ((xfloat, "_elemwise_kernel"), (solver, "compute_step_lengths"),
                              (solver, "steplen_sandwich_xf_groups"), (solver, "jacobi_min_eig"),
-                             (solver, "xf_min_eig_sym"), (core_kernels, "xf_matmul_k"),
-                             (solver, "schur_block_contribution")),
-                            RANGES):
+                             (solver, "xf_min_eig_sym"), (solver, "schur_block_contribution")),
+                            RANGES[:5] + RANGES[6:]):
                         ranged(owner, attr, label)
                     prof.start()
                     window["t0"] = time.perf_counter()
@@ -1136,6 +1151,10 @@ def profile_all_kernels(dev, record, steady_it_s, check=True):
         return dict(phases, mu_R_Xinv=first_phase)
 
     solver.make_ipm_phases = phases_with_window
+    # the phases take their matmul when they are made (core/kernels.py's
+    # matmul_route), so its range goes on before the solve; it records
+    # only while the profiler runs
+    ranged(core_kernels, "xf_matmul_k", RANGES[5])
     try:
         solve(8, 5, 3, dev, dict(ALL_KERNELS_ROUTE, maxiterations=last + 1))
         torch.cuda.synchronize()
@@ -2317,6 +2336,178 @@ def sharded_phase(dev, record, phase7, cpu_future):
     log(f"sharded phase: {out['s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the intra-cluster split and the int8-sliced matmul
+# ---------------------------------------------------------------------------
+
+INTRA_STEPS = 3  # (a)'s fused steps on two ranks
+INTRA_KERNELS = ("schur_pairs", "matmul_xf", "spd_inverse_xf", "steplen_xf", "elemwise_xf")
+BAND_KERNELS = ("spd_panel_xf", "matmul_xf", "elemwise_xf")
+BAND_SIZES = (261, 262, 512)  # sp86's S_j and Q, and a panel route's wide block
+# the int8-sliced matmul (ops/mxu_matmul.py) at config 1's pairing shapes
+# at k = 2 and 3, and wide at k=3, timed beside K4 on the same operands
+MXU_SHAPES = tuple((label, shape, k) for k in (2, 3) for label, shape in MATMUL_SHAPES[:2]) + (
+    ("(1024,64)x(64,1024)", (1, 1024, 64, 1024), 3),)
+MXU_ROUTE = dict(ALL_KERNELS_ROUTE, use_cuda_matmul=False, use_mxu_matmul=True)
+
+
+def mxu_operands(i, dev):
+    """MXU_SHAPES[i]'s operands, made from a seed."""
+    _, (B, n, K, m), k = MXU_SHAPES[i]
+    rng = np.random.default_rng(1600 + i)
+    return rand_xf(rng, (B, n, K), k, dev), rand_xf(rng, (B, K, m), k, dev)
+
+
+def mxu_plain(i):
+    """xf_matmul_mxu of MXU_SHAPES[i] on the CPU; in a worker process."""
+    from clrs_tpu_torch.ops.mxu_matmul import xf_matmul_mxu
+    from clrs_tpu_torch.ops.xfloat import XF
+
+    torch.set_num_threads(2)
+    a, b = mxu_operands(i, "cpu")
+    return xf_matmul_mxu(XF(a), XF(b)).limbs
+
+
+def cpu_mxu_config1():
+    """Config 1 at k=3 on MXU_ROUTE on the CPU; in a worker process."""
+    torch.set_num_threads(2)
+    t0 = time.time()
+    bound_, res = solve(8, 5, 3, "cpu", MXU_ROUTE)
+    return dict(bound=bound_, status=res.status, iterations=res.iterations,
+                history=res.history, wall_s=time.time() - t0)
+
+
+def intra_phase(dev, record, mxu_futures, cpu_mxu):
+    """Phase 16: (a) two ranks on the one card (gloo carrying the CUDA
+    tensors) split config 1 at k=3 inside its clusters (parallel/intra.py,
+    T padded to a multiple of 2) on the all-kernels route: 3 fused steps
+    with every leaf bitwise the one rank's, then solve_intra_sharded to
+    `optimal` with the bound 240 to 1e-12, K2, K4, K5, K7 and K8 launched;
+    (b) the same ranks' panel-route SPD inverse with row bands at 261, 262
+    and 512 rows at k=3 (and the plain panel Cholesky at 64), bitwise the
+    one rank's, through the panel kernel, K4 and K8 only, and both forms
+    without a group on matrices that differ between the ranks, bitwise the
+    one rank's (no rank reads another's rows unless it names a group); (c)
+    xf_matmul_mxu on the card bitwise a CPU worker's at config 1's pairing
+    shapes at k = 2, 3 and wide at k=3, timed beside K4 (and with its adds
+    through K8, as MXU_ROUTE runs it), and config 1 at
+    k=3 on MXU_ROUTE to `optimal`, its rows held to the CPU's run of the
+    same route to 1e-10."""
+    import shutil
+    import socket
+    import tempfile
+
+    from clrs_tpu_torch.ops import cuda_xf
+    from clrs_tpu_torch.ops.mxu_matmul import xf_matmul_mxu
+    from clrs_tpu_torch.ops.xfloat import XF, elemwise_cuda
+    from clrs_tpu_torch.tools import mp_hetero_worker as worker
+
+    t_phase = time.time()
+    out = record["intra"] = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_intra_")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    opts = ["--what", "intra,intra_solve,bands", "--d", "5", "--k", "3", "--steps",
+            str(INTRA_STEPS), "--all-kernels", "--pad", "2",
+            "--band-sizes", ",".join(map(str, BAND_SIZES))]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "clrs_tpu_torch.tools.mp_hetero_worker", str(r), "2", str(port),
+         os.path.join(tmp, f"r{r}.npz"), "--device", "cuda", "--backend", "gloo", *opts],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(2)]
+    try:
+        # (c) while the ranks start
+        rows = out["mxu"] = []
+        for i, (label, shape, k) in enumerate(MXU_SHAPES):
+            a, b = mxu_operands(i, dev)
+            got = xf_matmul_mxu(XF(a), XF(b)).limbs
+            want = mxu_futures[i].get()
+            with elemwise_cuda():  # its adds through K8, as the solve's route runs it
+                k8_ms = median_ms(lambda: xf_matmul_mxu(XF(a), XF(b)), 5)
+            row = dict(shape=label, k=k, bitwise=bits_equal(got.cpu(), want),
+                       max_abs_err=float((got.cpu() - want).abs().max()),
+                       ms=median_ms(lambda: xf_matmul_mxu(XF(a), XF(b)), 5), k8_ms=k8_ms,
+                       k4_ms=median_ms(lambda: cuda_xf.matmul_xf(a, b), 5) if k > 2 else None)
+            log(f"intra (c) xf_matmul_mxu {label} k={k}: bitwise the CPU's "
+                f"{row['bitwise']}, one call {row['ms']:.4f} ms, its adds through K8 "
+                f"{k8_ms:.4f} ms" + (f", K4 {row['k4_ms']:.4f} ms" if row["k4_ms"] else ""))
+            rows.append(row)
+            assert row["bitwise"], f"intra (c): xf_matmul_mxu {label} k={k} differs from the CPU"
+        reset_counters()
+        t0 = time.time()
+        bound_, res = solve(8, 5, 3, dev, MXU_ROUTE)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counters()
+        cpu = cpu_mxu.get()
+        worst, held = held_rows(res.history, cpu["history"])
+        log(f"intra (c) config1 k=3 use_mxu_matmul (beside the ranks): bound {bound_!r} "
+            f"status {res.status} iterations {res.iterations} wall {wall:.3f} s; cpu: "
+            f"{cpu['bound']!r} {cpu['status']} {cpu['iterations']} ({cpu['wall_s']:.1f} s), "
+            f"rows held {worst!r} over {held}; launches {launches}")
+        out["mxu_solve"] = dict(bound=bound_, status=res.status, iterations=res.iterations,
+                                wall_s=wall, launches=launches, cpu_rel_diff=worst,
+                                cpu_held=held, cpu_wall_s=cpu["wall_s"])
+        assert res.status == "optimal" == cpu["status"], (res.status, cpu["status"])
+        assert abs(bound_ - 240.0) < 1e-12, bound_
+        assert held == min(res.iterations, cpu["iterations"]) and worst <= 1e-10, \
+            f"intra (c): gpu and cpu differ by {worst!r}"
+        assert launches["matmul_xf"] == launches["schur_pairs"] == 0, launches
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        log(f"intra: two gloo ranks on one card FAILED (ranks {failed}): "
+            + logs[failed[0]][-2000:].replace("\n", " | "))
+        raise AssertionError("intra: the two gloo ranks failed on the card")
+    ranks = [dict(np.load(os.path.join(tmp, f"r{r}.npz"))) for r in range(2)]
+    shutil.rmtree(tmp)
+
+    # (a) and (b): the one rank's steps and bands here, the card alone
+    one = {}
+    worker.run_intra(5, 3, INTRA_STEPS, dev, None, one, True, 2, False)
+    worker.run_bands(3, BAND_SIZES, dev, None, one)
+    for part in ("intra", "bands"):
+        bad = worker.differing(one, ranks, part + "/")
+        n = sum(key.startswith(part + "/") for key in one)
+        log(f"intra ({'a' if part == 'intra' else 'b'}) two gloo ranks on one card: "
+            f"{n - len(bad)} of {n} leaves bitwise the one rank's {bad[:5]}")
+        out[part] = dict(leaves=n, differing=bad)
+        assert not bad, (part, bad)
+    for part, kernels in (("intra", INTRA_KERNELS), ("intra_solve", INTRA_KERNELS),
+                          ("bands", BAND_KERNELS)):
+        counts = {key.split("/")[-1]: int(v) for key, v in ranks[0].items()
+                  if key.startswith(f"launches/{part}/")}
+        out[part + "_launches"] = counts
+        for name, count in counts.items():
+            assert (count > 0) == (name in kernels), f"intra: {part} launched {name} {count}"
+    diag = {key.split("/")[-1]: float(v) for key, v in ranks[0].items()
+            if key.startswith("intra_solve/result/diag/")}
+    solve_ = dict(iterations=int(ranks[0]["intra_solve/iterations"]),
+                  gap=float(ranks[0]["intra_solve/gap"]), bound=1.0 - diag["d_obj"],
+                  primal_err=diag["primal_err"], dual_err=diag["dual_err"],
+                  wall_s=float(ranks[0]["timing/intra_solve"]))
+    solve_["ms_per_iteration"] = 1e3 * solve_["wall_s"] / solve_["iterations"]
+    steps = dict(ranks_ms=[1e3 * float(t) for t in ranks[0]["timing/intra"]],
+                 one_ms=[1e3 * float(t) for t in one["timing/intra"]])
+    out.update(solve=solve_, step_ms=steps)
+    log(f"intra (a) solve_intra_sharded on two ranks: bound {solve_['bound']!r} gap "
+        f"{solve_['gap']:.3e} errors {solve_['primal_err']:.3e} {solve_['dual_err']:.3e} "
+        f"iterations {solve_['iterations']} ({solve_['ms_per_iteration']:.1f} ms each); "
+        f"fused step ms, two ranks {steps['ranks_ms']}, one rank {steps['one_ms']}")
+    optimal = (solve_["gap"] < 1e-15 and solve_["primal_err"] < 1e-30
+               and solve_["dual_err"] < 1e-30)
+    assert optimal and abs(solve_["bound"] - 240.0) < 1e-12, solve_
+    out["s"] = time.time() - t_phase
+    log(f"intra phase: {out['s']:.1f} s")
+
+
 def ptxas_report(text: str):
     """Registers, stack and spills of the k-limb kernels (and of the
     out-of-line add and multiply of K5 and K7, and K5's panel kernel) at
@@ -2415,6 +2606,8 @@ def main():
                         for kn in trees}
         cpu_sp16 = pool.apply_async(cpu_sphere, (8, 2, LADDER_PARITY_ITERATIONS))
         cpu_hetero = pool.apply_async(cpu_hetero_config1)
+        cpu_mxu = pool.apply_async(cpu_mxu_config1)
+        mxu_futures = [pool.apply_async(mxu_plain, (i,)) for i in range(len(MXU_SHAPES))]
         # phase 12's plain versions, wanted last (~480 s of one core's work on
         # the H100 machine)
         ladder_futures = {task: pool.apply_async(ladder_plain, (task,)) for task in ladder_tasks()}
@@ -2471,6 +2664,8 @@ def main():
         done("config 1 all-kernels")
         sharded_phase(dev, record, all_k3, cpu_hetero)
         done("sharded")
+        intra_phase(dev, record, mxu_futures, cpu_mxu)
+        done("intra")
         check_ladder_kernels(dev, rows, ladder_futures)
         done("sphere-packing kernels")
         panel_plain_out = {kn: f.get() for kn, f in panel_futures.items()}

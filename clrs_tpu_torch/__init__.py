@@ -8,7 +8,8 @@ NVIDIA Hopper (``csrc/``, built with nvcc at first use on the card); each
 has a plain PyTorch version that runs on the CPU.
 
 Layers (bottom-up):
-  ops/     k-limb arithmetic, linear algebra, the CUDA kernels
+  ops/     k-limb arithmetic, linear algebra, the CUDA kernels, the
+           int8-sliced matmul (mxu_matmul.py, torch._int_mm)
   core/    block metadata, batching, problem packing, the IPM solver
            (the phase driver, and the device-resident loop that reads the
            device once per chunk of iterations), precision escalation (a
@@ -21,7 +22,10 @@ Layers (bottom-up):
   utils/   checkpoints of the iterate, the mpmath oracle IPM, the flop
            and bound model
   parallel/ the cluster-sharded solve over the ranks of a
-           torch.distributed process group, one device each
+           torch.distributed process group, one device each, and the
+           split of one large cluster's work inside it (intra.py: the
+           pairing products, the Schur rows and the panel forms'
+           trailing updates in row bands, ops/bands.py)
 
 The entry points (``solverank1sdp``, ``solve_with_escalation``,
 ``solve_on_device`` (on its problem's own device),

@@ -59,6 +59,9 @@ class SDPProblem:
     x_sigma: Optional[XF] = None  # x_user = x_internal / x_sigma
     y_R_inv: Optional[XF] = None  # y_user = y_R_inv @ y_internal
     y_R: Optional[XF] = None  # inverse transform for warm starts
+    # parallel/intra.IntraPlan: this rank's share of the work inside each
+    # cluster (parallel/intra.shard_problem); None runs it all here
+    plan: Optional[Any] = None
 
     @property
     def device(self):

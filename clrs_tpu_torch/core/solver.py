@@ -34,6 +34,7 @@ versions.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -51,6 +52,7 @@ from clrs_tpu_torch.core.batched import (
 from clrs_tpu_torch.core.blockinfo import BlockInfo
 from clrs_tpu_torch.core.kernels import (
     compute_pairings,
+    matmul_route,
     pairing_diag,
     schur_block_contribution,
     trace_A_from_diag,
@@ -127,6 +129,10 @@ class SolverConfig:
     # through K2, S_j^-1 and Q^-1 through K1/K5.  None = on when the
     # problem lies on a CUDA device.
     use_cuda_matmul: Optional[bool] = None
+    # pairing / weighted-A / trace-A products through the int8-sliced
+    # product (ops/mxu_matmul.py: torch._int_mm, the card's int8 tensor
+    # cores) where the kernels are off, as the reference's use_mxu_matmul
+    use_mxu_matmul: bool = False
 
     def use_cuda_kernels(self, device) -> bool:
         if self.use_cuda_matmul is None:
@@ -165,10 +171,11 @@ def compute_residual_R(X, Y, mu: XF, info: BlockInfo, dX=None, dY=None):
     return map_blocks(fn2, info, X, Y, dX, dY)
 
 
-def _cuda_spd_inverse(a: XF):
-    """S^-1 (any leading batch) through K1 or K5, symmetrized."""
+def _cuda_spd_inverse(a: XF, group=None):
+    """S^-1 (any leading batch) through K1 or K5, symmetrized; group bands
+    the panel route's row products."""
     n = a.shape[-1]
-    inv, ok = xf_spd_inverse_batched(a.limbs.reshape(a.k, -1, n, n))
+    inv, ok = xf_spd_inverse_batched(a.limbs.reshape(a.k, -1, n, n), group)
     return xf_sym(XF(inv.reshape(a.limbs.shape))), ok.reshape(a.shape[:-2])
 
 
@@ -196,15 +203,22 @@ def compute_X_inv(X, info: BlockInfo, use_lu: bool, use_cuda: bool = False):
 
 
 def compute_decomposition(problem: SDPProblem, X_inv, Y, use_lu_schur: bool,
-                          use_cuda: bool = False):
+                          use_cuda: bool = False, mm=None):
     """Pairings + Schur complement + saddle-point factorization, one
     batched call per cluster shape group.  S_j^-1 and Q^-1 are
-    materialized, so the direction solves are matmuls.
+    materialized, so the direction solves are matmuls.  use_cuda takes
+    K2 and K1/K5, mm the pairings' matmul (matmul_route(use_cuda) by
+    default).  Under the problem's intra plan (parallel/intra.py) the
+    ranks split the pairing products, the Schur rows and the panel forms'
+    trailing updates.
 
     Returns dict with: S_mat, S_inv, S_inv_B per cluster, Q_inv, A_Y
     (diagonal Y pairings for the fast Tr(A_* Y)), ok."""
     info = problem.info
     dev = problem.device
+    plan = problem.plan
+    group = None if plan is None else plan.group
+    mm = matmul_route(use_cuda) if mm is None else mm
     ok = None
     S_mat: List[Any] = [None] * info.J
     S_inv: List[Any] = [None] * info.J
@@ -214,9 +228,9 @@ def compute_decomposition(problem: SDPProblem, X_inv, Y, use_lu_schur: bool,
     if use_lu_schur:
         inv_fn = xf_inverse_lu
     elif use_cuda:
-        inv_fn = _cuda_spd_inverse
+        inv_fn = functools.partial(_cuda_spd_inverse, group=group)
     else:
-        inv_fn = xf_spd_inverse
+        inv_fn = functools.partial(xf_spd_inverse, group=group)
 
     Q = XF.zeros((info.n_y, info.n_y), k=k, device=dev)
     for js in cluster_groups(info):
@@ -235,11 +249,11 @@ def compute_decomposition(problem: SDPProblem, X_inv, Y, use_lu_schur: bool,
         S_j = XF.zeros((G, dim, dim), k=k, device=dev)
         ay = []
         for l in range(L):
-            PX = compute_pairings(Xinv_b[l], Vs[l], m, use_cuda)
-            PY = compute_pairings(Y_b[l], Vs[l], m, use_cuda)
+            PX = compute_pairings(Xinv_b[l], Vs[l], m, mm, plan)
+            PY = compute_pairings(Y_b[l], Vs[l], m, mm, plan)
             ay.append(pairing_diag(PY, m))
             S_j = xf_add(S_j, schur_block_contribution(
-                PX, PY, Hs[l], m, K, rmaxs[l], use_cuda))
+                PX, PY, Hs[l], m, K, rmaxs[l], use_cuda, plan))
         S_j = xf_sym(S_j)
         Sj_inv, okj = inv_fn(S_j)
         Sj_inv = xf_sym(Sj_inv)
@@ -261,7 +275,7 @@ def compute_decomposition(problem: SDPProblem, X_inv, Y, use_lu_schur: bool,
                 A_Y=A_Y, ok=ok)
 
 
-def compute_weighted_A(problem: SDPProblem, a: XF, use_cuda: bool = False):
+def compute_weighted_A(problem: SDPProblem, a: XF, mm=xf_matmul):
     """Block-diagonal sum_i a_i A_i, cluster-grouped."""
     info = problem.info
     out: List[Any] = [None] * info.J
@@ -274,7 +288,7 @@ def compute_weighted_A(problem: SDPProblem, a: XF, use_cuda: bool = False):
         for l in range(info.L[j0]):
             V = stack_xf([problem.clusters[j].Vs[l] for j in js])
             H = stack_xf([problem.clusters[j].Hs[l] for j in js])
-            rows.append(weighted_A_block(a_j, V, H, m, K, rmaxs[l], use_cuda))
+            rows.append(weighted_A_block(a_j, V, H, m, K, rmaxs[l], mm))
         for i, j in enumerate(js):
             out[j] = [r[i] for r in rows]
     return out
@@ -303,7 +317,7 @@ def compute_trace_A_diag(problem: SDPProblem, A_Y):
     return _concat_cluster_vecs(info, parts)
 
 
-def compute_trace_A_generic(problem: SDPProblem, Z, use_cuda: bool = False):
+def compute_trace_A_generic(problem: SDPProblem, Z, mm=xf_matmul):
     """Tr(A_* Z) for a generic block-diagonal Z."""
     info = problem.info
     parts: List[Any] = [None] * info.J
@@ -316,7 +330,7 @@ def compute_trace_A_generic(problem: SDPProblem, Z, use_cuda: bool = False):
             Zb = stack_xf([Z[j][l] for j in js])
             V = stack_xf([problem.clusters[j].Vs[l] for j in js])
             H = stack_xf([problem.clusters[j].Hs[l] for j in js])
-            t = trace_A_generic(Zb, V, H, m, K, rmaxs[l], use_cuda)
+            t = trace_A_generic(Zb, V, H, m, K, rmaxs[l], mm)
             tr = t if tr is None else xf_add(tr, t)
         for i, j in enumerate(js):
             parts[j] = tr[i]
@@ -335,13 +349,12 @@ def _group_By(problem: SDPProblem, y: XF) -> List[XF]:
     return out
 
 
-def compute_residuals(problem: SDPProblem, x, X, y, A_Y, use_cuda: bool = False,
-                      Y=None):
+def compute_residuals(problem: SDPProblem, x, X, y, A_Y, mm=xf_matmul, Y=None):
     """P = sum A_i x_i - X - C;  p = b - B^T x;  d = c - Tr(A_* Y) - By.
     The trace term uses the fast diag-pairing path when A_Y is given;
     pass A_Y=None with the Y blocks for the generic trace."""
     info = problem.info
-    P = compute_weighted_A(problem, x, use_cuda)
+    P = compute_weighted_A(problem, x, mm)
     for j in range(info.J):
         for l in range(info.L[j]):
             t = xf_add(P[j][l], -X[j][l])
@@ -360,12 +373,12 @@ def compute_residuals(problem: SDPProblem, x, X, y, A_Y, use_cuda: bool = False,
     if A_Y is not None:
         tr = compute_trace_A_diag(problem, A_Y)
     else:
-        tr = compute_trace_A_generic(problem, Y, use_cuda)
+        tr = compute_trace_A_generic(problem, Y, mm)
     d = xf_add(xf_add(cs, -By), -tr)
     return P, p, d
 
 
-def compute_direction_zrhs(problem, P, p, d, R, X_inv, Y, use_cuda: bool = False):
+def compute_direction_zrhs(problem, P, p, d, R, X_inv, Y, mm=xf_matmul):
     """Direction stage 1: Z = Sym(X^-1 (P Y - R)), rhs_x = -d - Tr(A_* Z),
     rhs_y = p."""
     Z = map_blocks(
@@ -373,7 +386,7 @@ def compute_direction_zrhs(problem, P, p, d, R, X_inv, Y, use_cuda: bool = False
             xf_matmul(Xib, xf_add(xf_matmul(Pb, Yb), -Rb))),
         problem.info, P, Y, R, X_inv,
     )
-    rhs_x = xf_add(-d, -compute_trace_A_generic(problem, Z, use_cuda))
+    rhs_x = xf_add(-d, -compute_trace_A_generic(problem, Z, mm))
     return rhs_x, p
 
 
@@ -432,9 +445,9 @@ def compute_direction_solve(problem, rhs_x, rhs_y, decomp, refine_steps: int = 1
     return _cat0(dxs), dy
 
 
-def compute_direction_dxdy(problem, P, R, X_inv, Y, dx, use_cuda: bool = False):
+def compute_direction_dxdy(problem, P, R, X_inv, Y, dx, mm=xf_matmul):
     """Direction stage 3: dX = P + sum_i dx_i A_i, dY = Sym(X^-1 (R - dX Y))."""
-    dX = compute_weighted_A(problem, dx, use_cuda)
+    dX = compute_weighted_A(problem, dx, mm)
     dX = bd_map(xf_add, dX, P)
     dY = map_blocks(
         lambda Rb, dXb, Yb, Xib: xf_sym(
@@ -445,11 +458,11 @@ def compute_direction_dxdy(problem, P, R, X_inv, Y, dx, use_cuda: bool = False):
 
 
 def compute_search_direction(problem, P, p, d, R, X_inv, Y, decomp,
-                             refine_steps: int = 1, use_cuda: bool = False):
+                             refine_steps: int = 1, mm=xf_matmul):
     """Predictor/corrector direction via the saddle-point factorization."""
-    rhs_x, rhs_y = compute_direction_zrhs(problem, P, p, d, R, X_inv, Y, use_cuda)
+    rhs_x, rhs_y = compute_direction_zrhs(problem, P, p, d, R, X_inv, Y, mm)
     dx, dy = compute_direction_solve(problem, rhs_x, rhs_y, decomp, refine_steps)
-    dX, dY = compute_direction_dxdy(problem, P, R, X_inv, Y, dx, use_cuda)
+    dX, dY = compute_direction_dxdy(problem, P, R, X_inv, Y, dx, mm)
     return dx, dX, dy, dY
 
 
@@ -558,6 +571,7 @@ def make_ipm_phases(problem: SDPProblem, cfg: SolverConfig):
     k = problem.b.k
     dev = problem.device
     use_cuda = cfg.use_cuda_kernels(dev)
+    mm = matmul_route(use_cuda, cfg.use_mxu_matmul)
     # the iteration's constants, made once on the problem's device (fills,
     # no host-to-device copy)
     Ktot = XF.from_float(float(info.total_psd_size), k=k, device=dev)
@@ -576,14 +590,14 @@ def make_ipm_phases(problem: SDPProblem, cfg: SolverConfig):
         return mu, R, X_inv, ok_inv
 
     def phase_decomp(problem, X_inv, Y):
-        return compute_decomposition(problem, X_inv, Y, cfg.use_lu_schur, use_cuda)
+        return compute_decomposition(problem, X_inv, Y, cfg.use_lu_schur, use_cuda, mm)
 
     def phase_residuals(problem, x, X, y, A_Y):
-        return compute_residuals(problem, x, X, y, A_Y, use_cuda)
+        return compute_residuals(problem, x, X, y, A_Y, mm)
 
     def phase_direction(problem, P, p, d, R, X_inv, Y, decomp):
         return compute_search_direction(problem, P, p, d, R, X_inv, Y, decomp,
-                                        cfg.refine_steps, use_cuda)
+                                        cfg.refine_steps, mm)
 
     def phase_corrector_R(X, Y, dX, dY, mu, pd_feas):
         XdX = bd_map(xf_add, X, dX)

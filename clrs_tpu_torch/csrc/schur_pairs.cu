@@ -5,7 +5,9 @@
 // _schur_pairs_batched, _schur_pairs_batched_tiled, xf_schur_pairs_pallas)
 // and the gather that feeds it (clrs_tpu/core/kernels.py:
 // _schur_block_contribution_pallas): for the pairings PX, PY (G, m, T, m, T)
-// and the weights HH (G, T, T), every output entry (g, i1, t1, i2, t2), with
+// and the weights HH (G, T, T), every output entry (g, i1, t1, i2, t2) of
+// the rows t1 asked for (all T, or a band of T1 of them: the caller's views
+// of PX's rows t1, PY's columns t1 and HH's rows t1), with
 // (r1, s1) and (r2, s2) the pairs i1 and i2 of core/blockinfo.py:pair_list
 // (s <= r, pair i = r (r + 1) / 2 + s), is
 //     w = ((a0 b0 + a1 b1) + (a2 b2 + a3 b3)) HH[g, t1, t2],
@@ -63,9 +65,11 @@ constexpr size_t kMaxShared = 232448;  // an H100 block's dynamic shared memory
 template <int K>
 constexpr bool kFma = K <= 4;
 
-// The description ops/cuda_xf.py:_schur_plan packs: 22 int64.
+// The description ops/cuda_xf.py:_schur_plan packs: 23 int64.  T1 is the
+// rows t1 of the output (the pairings' band of them, T at one rank), T its
+// columns t2.
 struct Desc {
-  long long k, G, m, T, P, ty;
+  long long k, G, m, T, T1, P, ty;
   long long px[6];  // strides: limb, batch, row pair r, t1, column s, t2
   long long py[6];
   long long hh[4];  // strides: limb, batch, t1, t2
@@ -82,8 +86,8 @@ __global__ void __launch_bounds__(kTileT2 * kMaxTileT1)
                        const Desc d) {
   using namespace clrs;
   extern __shared__ double sb[];
-  const int T = (int)d.T, m = (int)d.m, P = (int)d.P, ty = (int)d.ty;
-  const int tiles2 = (T + kTileT2 - 1) / kTileT2, tiles1 = (T + ty - 1) / ty;
+  const int T = (int)d.T, T1 = (int)d.T1, m = (int)d.m, P = (int)d.P, ty = (int)d.ty;
+  const int tiles2 = (T + kTileT2 - 1) / kTileT2, tiles1 = (T1 + ty - 1) / ty;
   long long blk = blockIdx.x;
   const int tile2 = (int)(blk % tiles2);
   blk /= tiles2;
@@ -102,7 +106,7 @@ __global__ void __launch_bounds__(kTileT2 * kMaxTileT1)
   // (t1, t2) at sb[((c m + br) K + q) ty kRow + (t1 - t1_0) kRow + t2 - t2_0];
   // the block's 32 ty threads take the tile's cells along t1 here
   const int st2 = threadIdx.x / ty, st1 = threadIdx.x % ty;
-  if (t1_0 + st1 < T && t2_0 + st2 < T) {
+  if (t1_0 + st1 < T1 && t2_0 + st2 < T) {
     const double* src = py + g * d.py[1] + (t2_0 + st2) * d.py[3] + (t1_0 + st1) * d.py[5];
     double* dst = sb + st1 * kRow + st2;
     for (int c = 0; c < nc; ++c) {
@@ -118,7 +122,7 @@ __global__ void __launch_bounds__(kTileT2 * kMaxTileT1)
 
   const int lt2 = threadIdx.x % kTileT2, lt1 = threadIdx.x / kTileT2;
   const int t1 = t1_0 + lt1, t2 = t2_0 + lt2;
-  if (t1 >= T || t2 >= T) return;
+  if (t1 >= T1 || t2 >= T) return;
   double h[K];
   load_xf<K>(hh + g * d.hh[1] + t1 * d.hh[2] + t2 * d.hh[3], (size_t)d.hh[0], h);
   const double* pxg = px + g * d.px[1] + t1 * d.px[3] + t2 * d.px[5];
@@ -129,8 +133,8 @@ __global__ void __launch_bounds__(kTileT2 * kMaxTileT1)
   auto b_at = [&](int br, int c, double(&y)[K]) {
     load_xf<K>(sbt + (size_t)(c * m + br) * K * limb_rows, limb_rows, y);
   };
-  const size_t n_out = (size_t)d.G * P * T * P * T;  // the output's limb stride
-  double* o = out + (((size_t)g * P + i1) * T + t1) * P * T + t2;
+  const size_t n_out = (size_t)d.G * P * T1 * P * T;  // the output's limb stride
+  double* o = out + (((size_t)g * P + i1) * T1 + t1) * P * T + t2;
   const int cs = nc - 1;
   int r2 = 0, s2 = 0;
   for (int i2 = 0; i2 < P; ++i2) {
@@ -162,7 +166,7 @@ __global__ void __launch_bounds__(kTileT2 * kMaxTileT1)
 template <int K>
 int launch(const Desc& d, const double* px, const double* py, const double* hh,
            double* out, cudaStream_t stream) {
-  if (d.G <= 0 || d.T <= 0) return 0;
+  if (d.G <= 0 || d.T <= 0 || d.T1 <= 0) return 0;
   if (d.m < 1 || d.P != d.m * (d.m + 1) / 2 || d.ty < 1 || d.ty > kMaxTileT1)
     return (int)cudaErrorInvalidValue;
   const size_t shared = shared_bytes(d);
@@ -173,7 +177,7 @@ int launch(const Desc& d, const double* px, const double* py, const double* hh,
     if (e != cudaSuccess) return (int)e;
   }
   const long long blocks =
-      d.G * d.P * ((d.T + d.ty - 1) / d.ty) * ((d.T + kTileT2 - 1) / kTileT2);
+      d.G * d.P * ((d.T1 + d.ty - 1) / d.ty) * ((d.T + kTileT2 - 1) / kTileT2);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   schur_pairs_kernel<K><<<(unsigned)blocks, kTileT2 * (int)d.ty, shared, stream>>>(
       px, py, hh, out, d);
@@ -182,8 +186,8 @@ int launch(const Desc& d, const double* px, const double* py, const double* hh,
 
 }  // namespace
 
-// desc: the 22 int64 of Desc; px, py, hh: read at desc's strides; out:
-// (k, G, P, T, P, T) dense.  Returns -1 for a limb count the library was
+// desc: the 23 int64 of Desc; px, py, hh: read at desc's strides; out:
+// (k, G, P, T1, P, T) dense.  Returns -1 for a limb count the library was
 // not built for, else a cudaError_t.
 extern "C" int clrs_schur_pairs(const char* desc, const double* px, const double* py,
                                 const double* hh, double* out, void* stream) {

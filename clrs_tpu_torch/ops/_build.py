@@ -42,7 +42,7 @@ _SIGNATURES = {
     "clrs_spd_inverse_xf": [ctypes.c_char_p, _P, _P, _P, _P, _P],
     # desc (16 int64: ops/cuda_xf._panel_plan), t, z, y, okf, scratch, stream
     "clrs_spd_panel_xf": [ctypes.c_char_p, _P, _P, _P, _P, _P, _P],
-    # desc (22 int64: ops/cuda_xf._schur_plan), px, py, hh, out, stream
+    # desc (23 int64: ops/cuda_xf._schur_plan), px, py, hh, out, stream
     "clrs_schur_pairs": [ctypes.c_char_p, _P, _P, _P, _P, _P],
     # desc (20 int64: ops/cuda_xf._matmul_plan), a, b, c, stream
     "clrs_matmul_xf": [ctypes.c_char_p, _P, _P, _P, _P],

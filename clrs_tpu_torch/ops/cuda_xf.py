@@ -56,6 +56,17 @@ from clrs_tpu_torch.ops.xfloat import (
     fast_two_sum,
     two_prod,
 )
+from clrs_tpu_torch.ops.bands import gather, row_band
+
+
+def launch_counters():
+    """Every kernel's wrapper, by the name its launch count goes under
+    (each wrapper counts its launches in its ``launches`` attribute)."""
+    return {"spd_inverse_dd": dd_spd_inverse, "schur_pairs": schur_pairs,
+            "matmul_dd": dd_matmul, "matmul_xf": matmul_xf, "spd_inverse_xf": spd_inverse_xf,
+            "steplen_xf": steplen_sandwich_xf, "elemwise_xf": elemwise_xf,
+            "spd_inverse_dd_wide": cuda_dd.dd_spd_inverse_wide, "spd_panel_xf": spd_panel_xf}
+
 
 def _check_cuda(name: str, *ts: torch.Tensor):
     for t in ts:
@@ -124,8 +135,9 @@ def _schur_indices(m: int):
 
 
 def schur_pairs_torch(px: torch.Tensor, py: torch.Tensor, hh: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: px, py (k, *bs, m, T, m, T) and hh (k, *bs, T,
-    T), any strides, the batch axes broadcast -> w (k, *batch, P, T, P, T),
+    """Plain version of K2: px (k, *bs, m, T1, m, T), py (k, *bs, m, T, m,
+    T1) and hh (k, *bs, T1, T), any strides, the batch axes broadcast -> w
+    (k, *batch, P, T1, P, T) (T1 = T, or a band of the rows t1),
     P = m (m + 1) / 2, w[i1, t1, i2, t2] = ((a0 b0 + a1 b1) + (a2 b2 + a3
     b3)) HH[t1, t2] with a_i = px[ar_i, t1, ac_i, t2], b_i = py[br_i, t2,
     bc_i, t1] (_schur_indices), on ``xops``: the kernel's operations in its
@@ -155,13 +167,14 @@ def _schur_shared(k: int, m: int, ty: int) -> int:
 
 
 def _schur_plan(px: torch.Tensor, py: torch.Tensor, hh: torch.Tensor):
-    """The description csrc/schur_pairs.cu's C entry takes for K2 on px,
-    py (k, *bs, m, T, m, T) and hh (k, *bs, T, T), each read in place at
-    its strides, the batch axes broadcast (stride 0 where an operand has
-    size 1 or lacks the axis) and merged into one; the output shape (k,
-    *batch, P, T, P, T) and its element count.  The tile's rows t1 are the
-    power of two >= T up to 8, halved while the staged slices exceed
-    SCHUR_SHARED_BUDGET.  Raises on what the kernel does not take."""
+    """The description csrc/schur_pairs.cu's C entry takes for K2 on px
+    (k, *bs, m, T1, m, T), py (k, *bs, m, T, m, T1) and hh (k, *bs, T1, T),
+    each read in place at its strides, the batch axes broadcast (stride 0
+    where an operand has size 1 or lacks the axis) and merged into one; the
+    output shape (k, *batch, P, T1, P, T) and its element count.  The
+    tile's rows t1 are the power of two >= T1 up to 8, halved while the
+    staged slices exceed SCHUR_SHARED_BUDGET.  Raises on what the kernel
+    does not take."""
     ops = (px, py, hh)
     if any(x.dtype != F64 for x in ops) or len({x.device for x in ops}) != 1:
         raise ValueError("schur_pairs: need float64 limbs on one device, got "
@@ -169,9 +182,9 @@ def _schur_plan(px: torch.Tensor, py: torch.Tensor, hh: torch.Tensor):
     if px.ndim < 5 or py.ndim < 5 or hh.ndim < 3:
         raise ValueError(f"schur_pairs: bad shapes {tuple(px.shape)} {tuple(py.shape)} "
                          f"{tuple(hh.shape)}")
-    k, m, T = px.shape[0], px.shape[-4], px.shape[-1]
-    if (px.shape[-4:] != (m, T, m, T) or py.shape[-4:] != (m, T, m, T)
-            or hh.shape[-2:] != (T, T) or py.shape[0] != k or hh.shape[0] != k or m < 1):
+    k, m, T1, T = px.shape[0], px.shape[-4], px.shape[-3], px.shape[-1]
+    if (px.shape[-4:] != (m, T1, m, T) or py.shape[-4:] != (m, T, m, T1)
+            or hh.shape[-2:] != (T1, T) or py.shape[0] != k or hh.shape[0] != k or m < 1):
         raise ValueError(f"schur_pairs: bad shapes {tuple(px.shape)} {tuple(py.shape)} "
                          f"{tuple(hh.shape)}")
     _check_k(k)
@@ -184,15 +197,15 @@ def _schur_plan(px: torch.Tensor, py: torch.Tensor, hh: torch.Tensor):
     G = dims[0] if dims else 1
     sx, sy, sh = (s[0] if s else 0 for s in strides)
     ty = SCHUR_MAX_TILE_T1
-    while ty > 1 and (ty // 2 >= T or _schur_shared(k, m, ty) > SCHUR_SHARED_BUDGET):
+    while ty > 1 and (ty // 2 >= T1 or _schur_shared(k, m, ty) > SCHUR_SHARED_BUDGET):
         ty //= 2
     if _schur_shared(k, m, ty) > SCHUR_MAX_SHARED:
         raise ValueError(f"schur_pairs: m={m} at k={k} stages {_schur_shared(k, m, 1)} bytes "
                          f"a row, above {SCHUR_MAX_SHARED}")
     P = m * (m + 1) // 2
-    desc = struct.pack("<22q", k, G, m, T, P, ty, px.stride(0), sx, *px.stride()[-4:],
+    desc = struct.pack("<23q", k, G, m, T, T1, P, ty, px.stride(0), sx, *px.stride()[-4:],
                        py.stride(0), sy, *py.stride()[-4:], hh.stride(0), sh, *hh.stride()[-2:])
-    return desc, (k,) + batch + (P, T, P, T), G * P * T * P * T
+    return desc, (k,) + batch + (P, T1, P, T), G * P * T1 * P * T
 
 
 _schur_plans = {}
@@ -201,9 +214,10 @@ _schur_plans = {}
 def schur_pairs(px: torch.Tensor, py: torch.Tensor, hh: torch.Tensor) -> torch.Tensor:
     """K2 wrapper (shapes as schur_pairs_torch): one launch of
     csrc/schur_pairs.cu, px, py and hh read where they lie (the transposed
-    views compute_pairings returns, broadcast batches); the output is a
-    fresh contiguous (k, *batch, P, T, P, T).  The description is computed
-    once for each layout of the three and kept."""
+    views compute_pairings returns, or their band of rows t1, broadcast
+    batches); the output is a fresh contiguous (k, *batch, P, T1, P, T).
+    The description is computed once for each layout of the three and
+    kept."""
     if _on_cpu("schur_pairs", px, py, hh):
         return schur_pairs_torch(px, py, hh)
     key = (px.shape, px.stride(), py.shape, py.stride(), hh.shape, hh.stride(), px.dtype,
@@ -454,20 +468,22 @@ def _spd_inverse_single_torch(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.
     return torch.stack(acc, dim=1), torch.all(okf, dim=1)
 
 
-def _spd_inverse_route(x: torch.Tensor, limb_axis: int, single, single_plain, plain: bool):
+def _spd_inverse_route(x: torch.Tensor, limb_axis: int, single, single_plain, plain: bool,
+                       group=None):
     """The one place where the SPD inverse's route is chosen, for x (k, B,
     n, n) at limb_axis 0 or (B, k, n, n) at 1, returned in that layout with
     ok (B,): up to max_rows(k) rows one launch of csrc/spd_inverse_xf.cu
     counted as single's (the K1 or K5 wrapper), or single_plain, its plain
     version, taking (B, k, n, n); above, at any k, the panel route
-    (spd_inverse_panels).  plain takes the plain versions on any device."""
+    (spd_inverse_panels, its row products in bands over group).  plain
+    takes the plain versions on any device."""
     k, n = x.shape[limb_axis], x.shape[-1]
     if n <= cuda_dd.max_rows(k):
         if not plain:
             return spd_inverse_launch(single, x, limb_axis)
         inv, ok = single_plain(x if limb_axis == 1 else x.transpose(0, 1))
         return (inv if limb_axis == 1 else inv.transpose(0, 1)), ok
-    inv, ok = spd_inverse_panels(x if limb_axis == 0 else x.transpose(0, 1), plain)
+    inv, ok = spd_inverse_panels(x if limb_axis == 0 else x.transpose(0, 1), plain, group)
     return (inv if limb_axis == 0 else inv.transpose(0, 1)), ok
 
 
@@ -493,18 +509,19 @@ def spd_inverse_xf(limbs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 spd_inverse_xf.launches = 0
 
 
-def xf_spd_inverse_batched(x_limbs: torch.Tensor):
+def xf_spd_inverse_batched(x_limbs: torch.Tensor, group=None):
     """SPD inverse of the stacked-XF layout, limbs (k, B, n, n), read in
     place and returned in that layout: K1 at k=2 and K5 at k >= 3 (each
     counted as its wrapper's launch) up to max_rows(k) rows, the panel
     route above (_spd_inverse_route).  A CPU tensor takes the plain
-    versions; a CUDA tensor launches the kernels or raises."""
+    versions; a CUDA tensor launches the kernels or raises.  group bands
+    the panel route's row products (spd_inverse_panels)."""
     plain = x_limbs.device.type == "cpu"
     if not plain:
         _check_cuda("xf_spd_inverse_batched", x_limbs)
     single = ((dd_spd_inverse, dd_spd_inverse_torch) if x_limbs.shape[0] == 2
               else (spd_inverse_xf, _spd_inverse_single_torch))
-    return _spd_inverse_route(x_limbs, 0, *single, plain)
+    return _spd_inverse_route(x_limbs, 0, *single, plain, group)
 
 
 # ---------------------------------------------------------------------------
@@ -588,7 +605,8 @@ def spd_panel_xf(t: torch.Tensor, b: int, z: torch.Tensor, y: torch.Tensor,
 spd_panel_xf.launches = 0
 
 
-def spd_inverse_panels(a: torch.Tensor, plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+def spd_inverse_panels(a: torch.Tensor, plain: bool = False,
+                       group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """SPD inverse of a (k, B, n, n), any strides -> (inv (k, B, n, n), ok
     (B,)), by the reference's right-looking panels on T = [A | I] (k, B,
     n, 2n): per panel of SPD_PANEL rows, spd_panel_xf factors T's diagonal
@@ -606,7 +624,13 @@ def spd_inverse_panels(a: torch.Tensor, plain: bool = False) -> Tuple[torch.Tens
     a panel and sequential rank-1 accumulation in K4 here, the product
     tree of xf_matmul or XLA's there.  Each step is exact-EFT, so they
     agree to the ulp of the last limb (times the condition), not bit for
-    bit."""
+    bit.
+
+    With a process group each rank forms its band of the rows of every
+    trailing update (K4, then K8's add) and of W^T W (K4), ceil(rows /
+    ranks) rows in rank order (ops/bands.row_band), and the bands are
+    gathered after each: K4 accumulates each entry on its own and K8 is
+    elementwise, so the inverse is the same bits at any rank count."""
     k, B, n = a.shape[0], a.shape[1], a.shape[-1]
     if plain:
         factor, add = _spd_panel_xf_plain, elemwise_xf_torch
@@ -625,9 +649,12 @@ def spd_inverse_panels(a: torch.Tensor, plain: bool = False) -> Tuple[torch.Tens
         y = a.new_empty((k, B, p1 - p0, n - p1))
         factor(t, p1 - p0, zs, y, okf[:, p0:p1])
         if p1 < n:
-            t = add("add", t[:, :, p1 - p0:, p1 - p0:], matmul(y.mT, zs))
+            rows = row_band(n - p1, group)
+            band = t[:, :, p1 - p0 + rows.start:p1 - p0 + rows.stop, p1 - p0:]
+            t = gather(add("add", band, matmul(y.mT[..., rows, :], zs)), 2, group, n - p1)
     w = z[..., n:]
-    return matmul(w.mT, w), torch.all(okf > 0.5, dim=1)
+    rows = row_band(n, group)
+    return gather(matmul(w.mT[..., rows, :], w), 2, group, n), torch.all(okf > 0.5, dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ ladder of the solver switches to LU on failure).
 
 At n >= ``_PANEL_MIN_N`` the Cholesky and the triangular solves dispatch
 to the reference's blocked panel forms, whose trailing updates are
-``xf_matmul`` products; ``xf_lu`` has no panel form and runs at any n, as
-in the reference.
+``xf_matmul`` products, split into row bands over a process group when
+one is given (``xf_cholesky``, ``xf_spd_inverse``: ``group=``); ``xf_lu``
+has no panel form and runs at any n, as in the reference.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from clrs_tpu_torch.ops.xfloat import (
     xf_sum,
     xf_where,
 )
+from clrs_tpu_torch.ops.bands import gather, row_band, size_rank
 
 # The reference's defaults (clrs_tpu/ops/linalg.py:45-46): the order at
 # which the Cholesky and the triangular solves take the panel forms, and
@@ -64,12 +66,17 @@ def _iota(n: int, device) -> torch.Tensor:
     return torch.arange(n, device=device)
 
 
-def xf_cholesky(a: XF) -> Tuple[XF, torch.Tensor]:
+def xf_cholesky(a: XF, group=None) -> Tuple[XF, torch.Tensor]:
     """Lower-triangular L with a = L L^T; returns (L, ok) with ok False
     per block where a pivot is <= 0.  At n >= _PANEL_MIN_N the blocked
-    panel form."""
-    if _panel(a.shape[-1]):
-        return xf_cholesky_panel(a, panel=_PANEL_DEFAULT)
+    panel form, its trailing updates in row bands over group where the
+    ranks divide the padded order (else every rank computes them whole)."""
+    n = a.shape[-1]
+    if _panel(n):
+        padded = -(-n // _PANEL_DEFAULT) * _PANEL_DEFAULT
+        if padded % size_rank(group)[0]:
+            group = None
+        return xf_cholesky_panel(a, panel=_PANEL_DEFAULT, group=group)
     return xf_cholesky_seq(a)
 
 
@@ -98,19 +105,28 @@ def xf_cholesky_seq(a: XF) -> Tuple[XF, torch.Tensor]:
     return L, ok
 
 
-def xf_cholesky_panel(a: XF, panel: int = 32) -> Tuple[XF, torch.Tensor]:
+def xf_cholesky_panel(a: XF, panel: int = 32, group=None) -> Tuple[XF, torch.Tensor]:
     """Blocked right-looking Cholesky (clrs_tpu/ops/linalg.py:124-204).
     Per panel: the (panel x panel) diagonal block by the sequential kernel;
     W = L_d^-1 A[p0:p0+panel, :], the whole row slab; L's column block is
     W^T masked to rows >= p0; the trailing update A -= W_f^T W_f, W_f = W
     masked to the columns past the panel, through the plain xf_matmul.  An
     n that the panel does not divide is padded with an exact identity tail.
-    The reference's ``axis``/``n_dev`` arguments (row bands of the trailing
-    update under shard_map) are left out: they belong to the port's
-    parallel layer, not written yet."""
+
+    With a process group (the reference's ``axis``/``n_dev`` under
+    shard_map, :187-196) each rank forms its contiguous band of the
+    trailing update's rows, and the bands are gathered in rank order
+    (ops/bands.py).  Each output row's product tree never crosses
+    rows, so the factor is the same bits at any rank count.  The padded
+    order must divide the ranks (the reference's assert, :157): else
+    ValueError."""
     n0 = a.shape[-1]
     k, dev, bs = a.k, a.device, _batch(a)
     n = -(-n0 // panel) * panel
+    if n % size_rank(group)[0]:
+        raise ValueError(f"xf_cholesky_panel: the padded order {n} does not divide "
+                         f"{size_rank(group)[0]} ranks")
+    rows = row_band(n, group)
     if n != n0:
         pad = n - n0
         lim = torch.nn.functional.pad(a.limbs, (0, pad, 0, pad))
@@ -130,8 +146,8 @@ def xf_cholesky_panel(a: XF, panel: int = 32) -> Tuple[XF, torch.Tensor]:
         Lcol = xf_where((cols >= p0)[:, None], W.mT, zeros_col)
         L.limbs[..., p0:p0 + panel] = Lcol.limbs
         Wf = xf_where((cols >= p0 + panel)[None, :], W, zeros_row)
-        U = xf_matmul(Wf.mT, Wf)
-        A = xf_add(A, XF(-U.limbs))
+        U = gather(xf_matmul(Wf.mT[..., rows, :], Wf).limbs, -2, group)
+        A = xf_add(A, XF(-U))
     if n != n0:
         L = XF(L.limbs[..., :n0, :n0].contiguous())
     return L, ok
@@ -284,10 +300,11 @@ def xf_lu_solve(lu: XF, perm: torch.Tensor, b: XF) -> XF:
     return xf_solve_triu(lu, y, unit_diag=False)
 
 
-def xf_spd_inverse(a: XF) -> Tuple[XF, torch.Tensor]:
-    """SPD inverse via Cholesky: L^-T (L^-1 I)."""
+def xf_spd_inverse(a: XF, group=None) -> Tuple[XF, torch.Tensor]:
+    """SPD inverse via Cholesky: L^-T (L^-1 I); group bands the panel
+    form's trailing updates (xf_cholesky)."""
     n = a.shape[-1]
-    L, ok = xf_cholesky(a)
+    L, ok = xf_cholesky(a, group)
     eye = XF.eye(n, k=a.k, dtype=a.dtype, device=a.device)
     w = xf_solve_tril(L, eye)
     inv = xf_solve_triu(L.mT, w)

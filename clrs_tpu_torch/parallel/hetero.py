@@ -45,6 +45,7 @@ from clrs_tpu_torch.core.batched import stack_xf
 from clrs_tpu_torch.core.blockinfo import BlockInfo
 from clrs_tpu_torch.core.kernels import (
     compute_pairings,
+    matmul_route,
     pairing_diag,
     schur_block_contribution,
     trace_A_from_diag,
@@ -222,6 +223,7 @@ def make_hetero_step(shapes: Sequence[BundleShape], b: XF, cfg=None, b0: Optiona
     k, dev = b.k, b.device
     n_y = b.shape[0]
     use_cuda = cfg.use_cuda_kernels(dev)
+    mm = matmul_route(use_cuda)
     nB = len(shapes)
     if cfg.use_lu_schur:
         inv_s = xf_inverse_lu
@@ -288,8 +290,8 @@ def make_hetero_step(shapes: Sequence[BundleShape], b: XF, cfg=None, b0: Optiona
             S = XF.zeros((x_b.shape[0], sh.dim_S, sh.dim_S), k=k, device=dev)
             w["A_Y"] = []
             for l in range(sh.L):
-                PX = compute_pairings(w["Xinv"][l], d_b["V"][l], m, use_cuda)
-                PY = compute_pairings(Ys[l], d_b["V"][l], m, use_cuda)
+                PX = compute_pairings(w["Xinv"][l], d_b["V"][l], m, mm)
+                PY = compute_pairings(Ys[l], d_b["V"][l], m, mm)
                 w["A_Y"].append(pairing_diag(PY, m))
                 S = xf_add(S, schur_block_contribution(
                     PX, PY, d_b["H"][l], m, K, sh.rmaxs[l], use_cuda))
@@ -306,7 +308,7 @@ def make_hetero_step(shapes: Sequence[BundleShape], b: XF, cfg=None, b0: Optiona
             w["P"] = []
             for l in range(sh.L):
                 P_l = xf_add(weighted_A_block(x_b[..., 0], d_b["V"][l], d_b["H"][l], m, K,
-                                              sh.rmaxs[l], use_cuda), -Xs[l])
+                                              sh.rmaxs[l], mm), -Xs[l])
                 if has_C:
                     P_l = xf_add(P_l, -d_b["C"][l])
                 w["P"].append(XF(P_l.limbs * valid[:, None, None]))
@@ -345,7 +347,7 @@ def make_hetero_step(shapes: Sequence[BundleShape], b: XF, cfg=None, b0: Optiona
                 trZ = add_all([trace_A_generic(
                     xf_sym(xf_matmul(w["Xinv"][l],
                                      xf_add(xf_matmul(w["P"][l], Ys[l]), -R_all[bi][l]))),
-                    d_b["V"][l], d_b["H"][l], sh.m, sh.K, sh.rmaxs[l], use_cuda)
+                    d_b["V"][l], d_b["H"][l], sh.m, sh.K, sh.rmaxs[l], mm)
                     for l in range(sh.L)])
                 rxs.append(xf_add(-w["d"], -XF(trZ.limbs[..., None])))
 
@@ -364,7 +366,7 @@ def make_hetero_step(shapes: Sequence[BundleShape], b: XF, cfg=None, b0: Optiona
                 dXs, dYs = [], []
                 for l in range(sh.L):
                     dX = xf_add(weighted_A_block(dxs[bi][..., 0], d_b["V"][l], d_b["H"][l],
-                                                 sh.m, sh.K, sh.rmaxs[l], use_cuda), w["P"][l])
+                                                 sh.m, sh.K, sh.rmaxs[l], mm), w["P"][l])
                     dXs.append(dX)
                     dYs.append(xf_sym(xf_matmul(
                         w["Xinv"][l], xf_add(R_all[bi][l], -xf_matmul(dX, Ys[l])))))

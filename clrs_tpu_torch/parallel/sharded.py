@@ -36,6 +36,7 @@ import torch.distributed as dist
 
 from clrs_tpu_torch.core.kernels import (
     compute_pairings,
+    matmul_route,
     pairing_diag,
     schur_block_contribution,
     trace_A_from_diag,
@@ -237,6 +238,7 @@ def make_sharded_step(shape: HomogeneousShape, group=None, cfg=None):
         V, H, B, c, b = data["V"], data["H"], data["B"], data["c"], data["b"]
         k, dev = b.k, b.device
         use_cuda = cfg.use_cuda_kernels(dev)
+        mm = matmul_route(use_cuda)
         inv_s = _cuda_spd_inverse if use_cuda else xf_spd_inverse
         Jl = x.shape[0]
         eye = XF.eye(shape.bs, k=k, device=dev)
@@ -263,8 +265,8 @@ def make_sharded_step(shape: HomogeneousShape, group=None, cfg=None):
             X_inv = xf_sym(X_inv)
         ok = torch.all(ok_inv)
 
-        PX = compute_pairings(X_inv, V, m, use_cuda)
-        PY = compute_pairings(Y, V, m, use_cuda)
+        PX = compute_pairings(X_inv, V, m, mm)
+        PY = compute_pairings(Y, V, m, mm)
         A_Y = pairing_diag(PY, m)
         S = xf_sym(schur_block_contribution(PX, PY, H, m, K, rmax, use_cuda))
         S_inv, ok_s = inv_s(S)
@@ -276,20 +278,20 @@ def make_sharded_step(shape: HomogeneousShape, group=None, cfg=None):
         ok = ok & torch.all(ok_q)
 
         # residuals
-        P = xf_add(weighted_A_block(x[..., 0], V, H, m, K, rmax, use_cuda), -X)
+        P = xf_add(weighted_A_block(x[..., 0], V, H, m, K, rmax, mm), -X)
         p = xf_add(b, -asum(xf_matmul(B.mT, x)))
         trY = trace_A_from_diag(A_Y, H, m, K, rmax)
         d = xf_add(xf_add(c, -XF(trY.limbs[..., None])), -xf_matmul(B, y))
 
         def directions(RR):
             Z = xf_sym(xf_matmul(X_inv, xf_add(xf_matmul(P, Y), -RR)))
-            trZ = trace_A_generic(Z, V, H, m, K, rmax, use_cuda).reshape(
+            trZ = trace_A_generic(Z, V, H, m, K, rmax, mm).reshape(
                 (Jl, shape.dim_S, 1))
             tx = xf_matmul(S_inv, xf_add(-d, -trZ))
             acc = asum(xf_matmul(B.mT, tx))
             dy = xf_matmul(Q_inv, xf_add(p, -acc))
             dx = xf_add(tx, xf_matmul(SB, dy))
-            dX = xf_add(weighted_A_block(dx[..., 0], V, H, m, K, rmax, use_cuda), P)
+            dX = xf_add(weighted_A_block(dx[..., 0], V, H, m, K, rmax, mm), P)
             dY = xf_sym(xf_matmul(X_inv, xf_add(RR, -xf_matmul(dX, Y))))
             return dx, dX, dy, dY
 

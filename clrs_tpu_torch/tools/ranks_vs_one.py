@@ -50,22 +50,24 @@ def _option(opts, name, default):
     return opts[opts.index(name) + 1] if name in opts else default
 
 
-def run(world, out_dir, opts, timeout=1500):
-    """Launch world ranks, then one; return ({"ranks", "one": wall
+def run(world, out_dir, opts, timeout=1500, together=False):
+    """Launch world ranks, then one (together: the one beside the ranks,
+    whose seconds then share the host); return ({"ranks", "one": wall
     seconds}, the one rank's outputs, the ranks' outputs in rank order)."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     seconds = {}
 
-    def launch(name, n):
+    def start(name, n):
         port = _free_port()
-        t0 = time.time()
-        procs = [subprocess.Popen(
+        return name, time.time(), [subprocess.Popen(
             [sys.executable, "-m", "clrs_tpu_torch.tools.mp_hetero_worker", str(r), str(n),
              str(port), str(out_dir / f"{name}{r}.npz"), *opts],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO)
             for r in range(n)]
+
+    def finish(name, t0, procs):
         try:
             logs = [p.communicate(timeout=timeout)[0] for p in procs]
         finally:
@@ -76,10 +78,14 @@ def run(world, out_dir, opts, timeout=1500):
         for r, (p, log) in enumerate(zip(procs, logs)):
             if p.returncode != 0 or f"MPRESULT rank={r} ok" not in log:
                 raise RuntimeError(f"{name} rank {r} failed ({p.returncode}):\n{log[-4000:]}")
-        return [dict(np.load(out_dir / f"{name}{r}.npz")) for r in range(n)]
+        return [dict(np.load(out_dir / f"{name}{r}.npz")) for r in range(len(procs))]
 
-    ranks = launch("ranks", world)
-    one = launch("one", 1)[0]
+    if together:
+        launches = [start("ranks", world), start("one", 1)]
+        ranks, (one,) = (finish(*launched) for launched in launches)
+    else:
+        ranks = finish(*start("ranks", world))
+        one = finish(*start("one", 1))[0]
     return seconds, one, ranks
 
 

@@ -330,6 +330,40 @@ def test_schur_pairs_xf_kernel_bitwise(cuda, k, G, m, K, rmax):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", (2, 3, 6))
+@pytest.mark.parametrize("G,m,K,rmax", SCHUR_SHAPES)
+def test_schur_pairs_row_band_bitwise(cuda, k, G, m, K, rmax):
+    """K2 on a band of rows t1 (the views an intra rank hands it: PX's
+    rows t1, PY's columns t1, HH's rows t1), bitwise its plain version and
+    the whole block's rows: each half, and an odd band."""
+    px, py, hh = (x.to(cuda) for x in schur_operands(np.random.default_rng(k + G + m), k, G,
+                                                     m, K, rmax))
+    T = K * rmax
+    whole = cuda_xf.schur_pairs(px, py, hh)
+    for band in (slice(0, T // 2), slice(T // 2, T), slice(1, T, 2)):
+        x, y, h = px[..., band, :, :], py[..., band], hh[..., band, :]
+        got = cuda_xf.schur_pairs(x, y, h)
+        assert bitwise(got, cuda_xf.schur_pairs_torch(x, y, h)), (k, G, m, K, rmax, band)
+        assert bitwise(got, whole[..., band, :, :]), (k, G, m, K, rmax, band)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", (2, 3, 4))
+def test_xf_matmul_mxu_card_bitwise_cpu(cuda, k):
+    """The int8-sliced matmul (torch._int_mm on the card) bitwise the same
+    function on the CPU, at shapes on either side of _int_mm's rules."""
+    from clrs_tpu_torch.ops.mxu_matmul import xf_matmul_mxu
+    from clrs_tpu_torch.ops.xfloat import XF
+
+    rng = np.random.default_rng(60 + k)
+    for B, n, K, m in ((1, 6, 6, 11), (10, 1, 1, 1), (3, 17, 16, 8), (1, 64, 64, 64)):
+        a, b = rand_xf(rng, (B, n, K), k), rand_xf(rng, (B, K, m), k)
+        want = xf_matmul_mxu(XF(a), XF(b)).limbs
+        got = xf_matmul_mxu(XF(a.to(cuda)), XF(b.to(cuda))).limbs.cpu()
+        assert bitwise(got, want), (k, B, n, K, m)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("k", BUILT_KS)
 def test_spd_inverse_xf_kernel_bitwise(cuda, k):
     a = spd_batch(np.random.default_rng(k), 3, 9, 1e8)

@@ -333,13 +333,13 @@ def test_schur_plan_reads_operands_in_place(k):
     ty = 8 if cuda_xf._schur_shared(k, 2, 8) <= cuda_xf.SCHUR_SHARED_BUDGET else 4
     for x, y, h in cases:
         desc, shape, N = cuda_xf._schur_plan(x, y, h)
-        d = struct.unpack("<22q", desc)
+        d = struct.unpack("<23q", desc)
         batch = tuple(np.broadcast_shapes(x.shape[1:-4], y.shape[1:-4], h.shape[1:-2]))
         G = int(np.prod(batch))
-        assert d[:6] == (k, G, 2, 5, 3, ty) and shape == (k,) + batch + (3, 5, 3, 5)
+        assert d[:7] == (k, G, 2, 5, 5, 3, ty) and shape == (k,) + batch + (3, 5, 3, 5)
         assert N == G * 225
-        for op, off, dims in ((x, 6, (G, 2, 5, 2, 5)), (y, 12, (G, 2, 5, 2, 5)),
-                              (h, 18, (G, 5, 5))):
+        for op, off, dims in ((x, 7, (G, 2, 5, 2, 5)), (y, 13, (G, 2, 5, 2, 5)),
+                              (h, 19, (G, 5, 5))):
             want = op.expand((k,) + batch + op.shape[len(op.shape) - len(dims) + 1:])
             got = read_strided(op, d[off], d[off + 1:off + len(dims) + 1], dims)
             assert_bitwise(want.reshape(got.shape).numpy(), got)
@@ -348,7 +348,7 @@ def test_schur_plan_reads_operands_in_place(k):
         x = one.expand(k, 1, 3, T, 3, T)
         h = one[..., 0, 0].expand(k, 1, T, T)
         want = ty if cuda_xf._schur_shared(k, 3, ty) <= cuda_xf.SCHUR_SHARED_BUDGET else 4
-        assert struct.unpack("<22q", cuda_xf._schur_plan(x, x, h)[0])[5] == want
+        assert struct.unpack("<23q", cuda_xf._schur_plan(x, x, h)[0])[6] == want
 
 
 def test_schur_plan_refusals():
@@ -531,7 +531,7 @@ def test_mm_kernel_route_matches_pallas_interpret():
     # unbatched operand (its limb axis comes first)
     b = rand_dd(rng, (3, 6, 11))
     want = xf_matmul_pallas(jxf(a), jxf(b), interpret=True)
-    got = tk._mm(txf(a), txf(b), use_cuda=True)
+    got = tk.matmul_route(use_cuda=True)(txf(a), txf(b))
     for i in range(3):
         assert_close_dd(np.asarray(want.limbs[:, i]), got.limbs[:, i].numpy(),
                         REL_INTERPRET)
@@ -640,7 +640,7 @@ def k_ulp(k):
 
 @pytest.mark.parametrize("k", [3])
 def test_mm_k_route_matches_pallas_interpret(k):
-    """_mm's kernel route at k >= 3 (K4's plain version) against
+    """matmul_route's kernel route at k >= 3 (K4's plain version) against
     xf_matmul_pallas in interpret mode, on one grid step: in interpret
     mode the Pallas kernels' unrolled k < 6 bodies lose low limbs once the
     grid takes more steps (ROADMAP.md, reference quirks); the K6 test
@@ -652,7 +652,7 @@ def test_mm_k_route_matches_pallas_interpret(k):
     rng = np.random.default_rng(40 + k)
     a, b = rand_xf(rng, (1, 6, 6), k), rand_xf(rng, (1, 6, 11), k)
     want = xf_matmul_pallas(jxf(a), jxf(b), interpret=True)
-    got = tk._mm(txf(a), txf(b), use_cuda=True)
+    got = tk.matmul_route(use_cuda=True)(txf(a), txf(b))
     assert_close_xf(want.limbs, got.limbs.numpy(), k_ulp(k))
 
 

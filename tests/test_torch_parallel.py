@@ -24,7 +24,6 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from clrs_tpu.parallel import hetero as jhetero
 from clrs_tpu.parallel import sharded as jsharded
 from clrs_tpu_torch.apps.delsarte import build_delsarte_constraints
 from clrs_tpu_torch.core.blockinfo import get_block_info
@@ -36,6 +35,7 @@ from clrs_tpu_torch.parallel import hetero, multihost, sharded
 from clrs_tpu_torch.tools import mp_hetero_worker as worker
 from clrs_tpu_torch.tools import ranks_vs_one
 
+import reference_hetero_step
 from test_torch_slice import to_numpy_tree
 from test_torch_xfloat import torch_one_thread  # noqa: F401
 
@@ -44,6 +44,26 @@ OPTS = dict(omega_p=100.0, omega_d=100.0, verbose=False)
 SHAPE = dict(J=8, n_y=3, m=1, K=3, delta=3, rmax=1)  # tests/test_sharding.py:18-32
 STEPS = 3
 DIAG = ("mu", "p_obj", "d_obj", "alpha_p", "alpha_d")
+# the rank worker's options for two_rank_result
+WORKER_ARGS = ("--device", "cpu", "--steps", str(STEPS), "--what",
+               "sharded,hetero,solve,intra,bands", "--max-iterations", "4")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def background(tmp_path_factory):
+    """Work started before the module's first test, in processes of its
+    own, so that it runs while this process compiles the reference's
+    sharded step: the rank worker's processes of two_rank_result, and one
+    step of the reference's hetero step (tests/reference_hetero_step.py)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    hetero = reference_hetero_step.start(tmp_path_factory.mktemp("hetero"))
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(ranks_vs_one.run, 2, tmp_path_factory.mktemp("ranks"),
+                            list(WORKER_ARGS), timeout=300, together=True)
+        yield types.SimpleNamespace(ranks=ranks, hetero=hetero)
+        ranks.exception()  # wait for the processes before the module ends
+        hetero.close()
 
 
 def reference_eigvalsh(a):
@@ -146,25 +166,20 @@ def port_steps(problem, n_steps, cfg=None):
     return out
 
 
-def test_hetero_step_matches_reference(delsarte, reference_eigensolver):
+def test_hetero_step_matches_reference(delsarte, background, reference_eigensolver):
     """One hetero step of the port against clrs_tpu.parallel.hetero's on a
-    one-device mesh: y's hi + lo to 1e-28 of max|y| and the diagnostics to
-    rtol 1e-12 (tests/test_hetero_sharding.py:53-72); in fact the
-    diagnostics and y's leading limbs agree bitwise."""
+    one-device mesh (tests/reference_hetero_step.py, in a process of its
+    own since the module's start): y's hi + lo to 1e-28 of max|y| and the
+    diagnostics to rtol 1e-12 (tests/test_hetero_sharding.py:53-72); in
+    fact the diagnostics and y's leading limbs agree bitwise."""
     import bench
-    import clrs_tpu.core.solver as JS
 
     problem, _ = bench.build_problem(d=3, dtype=np.float64, k=2)
-    shapes, data, _ = jhetero.bundles_from_problem(problem, 1)
-    bstates, y = jhetero.initial_bundle_state(shapes, 100.0, 100.0, 2, problem.b.dtype,
-                                              problem.info.n_y)
-    step = jhetero.make_hetero_step(shapes, jhetero.make_cluster_mesh(1), problem.b,
-                                    JS.SolverConfig(**OPTS), b0=problem.b0)
-    (_, y), diag = step(tuple(data), (bstates, y), jnp.bool_(False))
+    yj, diag = background.hetero.result()
 
     port = problem_from_numpy(to_numpy_tree(problem), delsarte.info, device=CPU)
     (_, ty), tdiag = port_steps(port, 1)[0]
-    yj, yt = np.asarray(y.limbs), ty.limbs.numpy()
+    yt = ty.limbs.numpy()
     np.testing.assert_array_equal(yj[0], yt[0])
     scale = np.max(np.abs(yj.sum(axis=0)))
     np.testing.assert_allclose(yj.sum(axis=0), yt.sum(axis=0), rtol=0, atol=1e-28 * scale)
@@ -238,31 +253,31 @@ def test_multihost_solve_single_process():
 # ---------------------------------------------------------------------------
 
 
-WORKER_ARGS = ("--device", "cpu", "--steps", str(STEPS), "--what", "sharded,hetero,solve",
-               "--max-iterations", "4")
-
-
 @pytest.fixture(scope="module")
-def two_rank_result(tmp_path_factory):
-    """Both steps, 3 each, and 4 iterations of solve_hetero_multihost, on 2
-    gloo ranks of the rank worker (one process each), launched once; then
-    the same on one rank alone (tools/ranks_vs_one.py)."""
-    _, one, ranks = ranks_vs_one.run(2, tmp_path_factory.mktemp("ranks"), list(WORKER_ARGS),
-                                     timeout=300)
+def two_rank_result(background):
+    """Both steps, 3 each, 4 iterations of solve_hetero_multihost, 3 intra
+    steps and the panel forms' row bands, on 2 gloo ranks of the rank
+    worker (one process each), beside the same on one rank alone
+    (tools/ranks_vs_one.py), launched once when the module starts."""
+    _, one, ranks = background.ranks.result()
     return one, ranks
 
 
-@pytest.mark.parametrize("what", ["sharded", "hetero", "solve"])
+@pytest.mark.parametrize("what", ["sharded", "hetero", "solve", "intra", "bands"])
 def test_two_ranks_bitwise_one(two_rank_result, what):
     """Every iterate and diagnostic of 3 steps on 2 ranks, bit for bit the
     one rank's: each rank holds its contiguous slice of every bundle (the
     padded slots of Delsarte's 1-cluster bundle on rank 1 dropped), and
     the reduced values are replicated.  The solve's result (status,
     objectives, history, and the iterate and residuals gathered at its
-    end) is the one rank's on every rank."""
+    end) is the one rank's on every rank.  The intra steps (Delsarte 2d=6
+    at k=2, T padded to a multiple of 4, parallel/intra.py) and the panel
+    Cholesky and panel-route SPD inverse with row bands (64 and 40 rows;
+    40 splits unevenly at every panel) hold every leaf whole on every rank,
+    each the one rank's."""
     one, ranks = two_rank_result
     keys = [key for key in one if key.startswith(what + "/")]
-    assert len(keys) > 10
+    assert len(keys) > (3 if what == "bands" else 10)
     assert worker.differing(one, ranks, what + "/") == []
     if what == "hetero":  # the padding path: the 1-cluster bundle is padded on rank 1
         assert ranks[1]["hetero/0/state/0/0/0"].shape[1] == 1

@@ -88,7 +88,9 @@ NEW_MODULES = ("clrs_tpu_torch.core.escalate", "clrs_tpu_torch.core.device_loop"
                "clrs_tpu_torch.apps.sdpb_import", "clrs_tpu_torch.utils.oracle",
                "clrs_tpu_torch.utils.flops", "clrs_tpu_torch.parallel.sharded",
                "clrs_tpu_torch.parallel.hetero", "clrs_tpu_torch.parallel.multihost",
-               "clrs_tpu_torch.tools.mp_hetero_worker", "clrs_tpu_torch.tools.bound_shares")
+               "clrs_tpu_torch.tools.mp_hetero_worker", "clrs_tpu_torch.tools.bound_shares",
+               "clrs_tpu_torch.parallel.intra", "clrs_tpu_torch.ops.bands",
+               "clrs_tpu_torch.ops.mxu_matmul")
 
 
 def test_import_loads_neither_jax_nor_reference():
